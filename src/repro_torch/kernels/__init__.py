@@ -1,0 +1,7 @@
+"""The port's hand-written CUDA kernels (``csrc/``), their wrappers
+(``ops``) and their plain PyTorch versions (``ref``)."""
+from .ops import (fused_factor_build, fused_gram_mvm, gram_update, launches,
+                  reset_launches)
+
+__all__ = ["fused_factor_build", "fused_gram_mvm", "gram_update", "launches",
+           "reset_launches"]

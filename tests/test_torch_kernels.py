@@ -1,0 +1,243 @@
+"""The port's three kernel modules against the JAX package, and on the card.
+
+Each kernel of the port (``repro_torch.kernels.ops``: fused_factor_build,
+gram_update, fused_gram_mvm) is held against its JAX counterpart on the
+same numpy inputs, two ways:
+
+  * the JAX jnp path (``repro.core.backend`` under ``use_backend("jnp")``,
+    x64) against the port's plain version at float64: <= 1e-12 relative;
+  * the JAX Pallas kernel in interpret mode (``repro.kernels.ops.*(...,
+    interpret=True)``) against the port at f32 and with bf16-stored
+    inputs: <= 1e-5 relative to the output's max-abs (both accumulate the
+    same stored values in f32; the sums run in another order).
+
+D = 300 is deliberately not a multiple of 128. The CUDA kernels are held
+against their plain versions on the card in test_torch_kernels_card.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import backend as jbackend
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, ref
+
+D = 300
+X64_TOL = 1e-12
+F32_TOL = 1e-5
+
+
+def _arr(seed, *shape):
+    return np.random.RandomState(seed).randn(*shape)
+
+
+def _lam(kind, d=D, seed=7):
+    if kind == "scalar":
+        return 0.37
+    return np.abs(_arr(seed, d)) + 0.1
+
+
+def _jax(x, dtype=jnp.float64):
+    return x if isinstance(x, float) else jnp.asarray(x, dtype)
+
+
+def _torch(x, dtype=torch.float64):
+    return x if isinstance(x, float) else torch.tensor(x).to(dtype)
+
+
+def _rel(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want)) /
+                 max(float(np.max(np.abs(want))), 1e-300))
+
+
+def _stream_pair(x, bf16):
+    """(jax array, torch tensor) holding the same stored values."""
+    if bf16:
+        return jnp.asarray(x, jnp.bfloat16), torch.tensor(x).to(torch.bfloat16)
+    return jnp.asarray(x, jnp.float32), torch.tensor(x, dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# fused_factor_build
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("na,nb", [(8, 4), (4, 1), (3, 7)])
+@pytest.mark.parametrize("lam_kind", ["scalar", "vector"])
+def test_fused_factor_build_matches_jnp_x64(na, nb, lam_kind):
+    A, B, V = _arr(1, na, D), _arr(2, nb, D), _arr(3, nb, D)
+    lam, vs = _lam(lam_kind), _lam(lam_kind, seed=8)
+    with jbackend.use_backend("jnp"):
+        want = jbackend.fused_factor_build(_jax(A), _jax(B), _jax(V),
+                                           _jax(lam), v_scale=_jax(vs))
+    got = ops.fused_factor_build(_torch(A), _torch(B), _torch(V),
+                                 _torch(lam), v_scale=_torch(vs))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        assert tuple(g.shape) == w.shape
+        assert _rel(g.numpy(), w) <= X64_TOL
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "mixed"])
+@pytest.mark.parametrize("lam_kind", ["scalar", "vector"])
+def test_fused_factor_build_matches_pallas_interpret(storage, lam_kind):
+    """"mixed" is the bf16 query path: bf16 data streams, f32 Z."""
+    A, B, V = _arr(1, 8, D), _arr(2, 5, D), _arr(3, 5, D)
+    lam, vs = _lam(lam_kind), _lam(lam_kind, seed=8)
+    bf16 = storage != "f32"
+    (Aj, At), (Bj, Bt) = (_stream_pair(x, bf16) for x in (A, B))
+    Vj, Vt = _stream_pair(V, storage == "bf16")
+    want = jops.fused_factor_build(Aj, Bj, Vj, _jax(lam, jnp.float32),
+                                   v_scale=_jax(vs, jnp.float32),
+                                   interpret=True)
+    got = ops.fused_factor_build(At, Bt, Vt, _torch(lam, torch.float32),
+                                 v_scale=_torch(vs, torch.float32))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert _rel(g.numpy(), w) <= F32_TOL
+
+
+def test_fused_factor_build_reuses_b_for_v():
+    A, B = torch.tensor(_arr(1, 3, D)), torch.tensor(_arr(2, 2, D))
+    for g, w in zip(ops.fused_factor_build(A, B, None, 0.5),
+                    ops.fused_factor_build(A, B, B, 0.5)):
+        assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# gram_update
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nq,n,noise", [(6, 4, 0.0), (5, 5, 0.3)])
+@pytest.mark.parametrize("lam_kind", ["scalar", "vector"])
+@pytest.mark.parametrize("with_vs", [False, True])
+def test_gram_update_matches_jnp_x64(nq, n, noise, lam_kind, with_vs):
+    K1, M = _arr(1, nq, n), _arr(2, nq, n)
+    V, X = _arr(3, n, D), _arr(4, n, D)
+    lam = _lam(lam_kind)
+    vs = _lam("vector", seed=9) if with_vs else None
+    with jbackend.use_backend("jnp"):
+        want = jbackend.gram_update(_jax(K1), _jax(M), _jax(V), _jax(X),
+                                    _jax(lam),
+                                    v_scale=None if vs is None else _jax(vs),
+                                    noise=noise)
+    got = ops.gram_update(_torch(K1), _torch(M), _torch(V), _torch(X),
+                          _torch(lam),
+                          v_scale=None if vs is None else _torch(vs),
+                          noise=noise)
+    assert got.dtype == torch.float64 and tuple(got.shape) == (nq, D)
+    assert _rel(got.numpy(), want) <= X64_TOL
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("noise", [0.0, 0.25])
+def test_gram_update_matches_pallas_interpret(bf16, noise):
+    n = 6
+    nq = n if noise else 8
+    K1 = _arr(1, nq, n).astype(np.float32)
+    M = _arr(2, nq, n).astype(np.float32)
+    (Vj, Vt), (Xj, Xt) = (_stream_pair(_arr(s, n, D), bf16) for s in (3, 4))
+    lam, vs = _lam("vector"), _lam("vector", seed=9)
+    want = jops.gram_update(jnp.asarray(K1), jnp.asarray(M), Vj, Xj,
+                            _jax(lam, jnp.float32),
+                            v_scale=_jax(vs, jnp.float32), noise=noise,
+                            interpret=True)
+    got = ops.gram_update(torch.tensor(K1), torch.tensor(M), Vt, Xt,
+                          _torch(lam, torch.float32),
+                          v_scale=_torch(vs, torch.float32), noise=noise)
+    assert got.dtype == torch.float32
+    assert _rel(got.numpy(), want) <= F32_TOL
+
+
+# ---------------------------------------------------------------------------
+# fused_gram_mvm and the Alg.-2 small algebra
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("stationary", [False, True])
+@pytest.mark.parametrize("lam_kind", ["scalar", "vector"])
+def test_fused_gram_mvm_matches_jnp_x64(stationary, lam_kind):
+    n = 6
+    K1e, K2e = _arr(1, n, n), _arr(2, n, n)
+    Xt, V = _arr(3, n, D), _arr(4, n, D)
+    lam = _lam(lam_kind)
+    noise = 0.01 if lam_kind == "scalar" else 0.0
+    with jbackend.use_backend("jnp"):
+        want = jbackend.fused_gram_mvm(_jax(K1e), _jax(K2e), _jax(Xt),
+                                       _jax(V), _jax(lam),
+                                       stationary=stationary, noise=noise)
+    got = ops.fused_gram_mvm(_torch(K1e), _torch(K2e), _torch(Xt), _torch(V),
+                             _torch(lam), stationary=stationary, noise=noise)
+    assert got.dtype == torch.float64
+    assert _rel(got.numpy(), want) <= X64_TOL
+
+
+@pytest.mark.parametrize("stationary", [False, True])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_fused_gram_mvm_matches_pallas_interpret(stationary, bf16):
+    n = 5
+    K1e = _arr(1, n, n).astype(np.float32)
+    K2e = _arr(2, n, n).astype(np.float32)
+    (Xj, Xt), (Vj, Vt) = (_stream_pair(_arr(s, n, D), bf16) for s in (3, 4))
+    lam = 0.37
+    want = jops.fused_gram_mvm(jnp.asarray(K1e), jnp.asarray(K2e), Xj, Vj,
+                               lam, stationary=stationary, noise=1e-3,
+                               interpret=True)
+    got = ops.fused_gram_mvm(torch.tensor(K1e), torch.tensor(K2e), Xt, Vt,
+                             lam, stationary=stationary, noise=1e-3)
+    assert got.dtype == torch.float32
+    assert _rel(got.numpy(), want) <= F32_TOL
+
+
+@pytest.mark.parametrize("stationary", [False, True])
+def test_small_op_matches_jax(stationary):
+    K2e, M = _arr(1, 7, 7), _arr(2, 7, 7)
+    want = jref.small_op(jnp.asarray(K2e), jnp.asarray(M),
+                         stationary=stationary)
+    got = ref.small_op(torch.tensor(K2e), torch.tensor(M),
+                       stationary=stationary)
+    assert _rel(got.numpy(), want) <= X64_TOL
+
+
+# ---------------------------------------------------------------------------
+# Wrapper contracts (CPU side)
+# ---------------------------------------------------------------------------
+
+def test_wrappers_raise_on_bad_shapes_and_devices():
+    A, B = torch.zeros(3, D), torch.zeros(2, D)
+    with pytest.raises(ValueError):
+        ops.fused_factor_build(A, B, torch.zeros(3, D), 1.0)
+    with pytest.raises(ValueError):
+        ops.fused_factor_build(A, torch.zeros(2, D + 1), None, 1.0)
+    with pytest.raises(ValueError):
+        ops.gram_update(torch.zeros(4, 2), torch.zeros(4, 2), B, B, 1.0,
+                        noise=0.1)
+    with pytest.raises(ValueError):
+        ops.fused_gram_mvm(torch.zeros(3, 3), torch.zeros(3, 3),
+                           torch.zeros(3, D), torch.zeros(3, D, 2), 1.0,
+                           stationary=True)
+    with pytest.raises(ValueError):
+        ops.fused_factor_build(torch.zeros(3, 0), torch.zeros(2, 0), None,
+                               1.0)
+    with pytest.raises(ValueError):
+        ops.gram_update(torch.zeros(4, 2), torch.zeros(4, 2), B,
+                        torch.zeros(D, 2).T, 1.0)  # not contiguous
+    meta = torch.zeros(3, D, device="meta")
+    with pytest.raises(ValueError):
+        ops.fused_factor_build(meta, meta, None, 1.0)
+
+
+def test_cpu_route_counts_no_launch():
+    ops.reset_launches()
+    calls = dict(ref.cuda_calls)
+    A = torch.tensor(_arr(1, 3, D))
+    ops.fused_factor_build(A, A, None, 0.5)
+    ops.gram_update(torch.eye(3, dtype=torch.float64),
+                    torch.eye(3, dtype=torch.float64), A, A, 0.5)
+    ops.fused_gram_mvm(torch.eye(3, dtype=torch.float64),
+                       torch.eye(3, dtype=torch.float64), A, A, 0.5,
+                       stationary=False)
+    assert all(v == 0 for v in ops.launches.values())
+    assert ref.cuda_calls == calls
