@@ -9,13 +9,14 @@ Phases; any failure exits non-zero, and the last line (the result) is
 printed only when every phase passed:
 
   1. the card: name and power limit from nvidia-smi, capability (9, 0);
-  2. build the three CUDA kernels from src/repro_torch/kernels/csrc;
+  2. build the seven CUDA kernels from src/repro_torch/kernels/csrc;
   3. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (D = 4,194,304) and at a ragged D = 1,000,003,
-     with f32 and bf16 stream storage and both stationary flags, and at
-     the ragged D with per-lane (D,) lam and v_scale as well as scalar
-     ones; two launches on the same inputs must agree bit for bit (no
-     atomics); kernel, plain-version and bound times;
+     paths' shapes (D = 4,194,304) and at a ragged D = 1,000,003, with
+     f32 and bf16 stream storage and both stationary flags, and at the
+     ragged D with per-lane (D,) lam and v_scale as well as scalar ones;
+     two launches on the same inputs must agree bit for bit (no
+     atomics); kernel, plain-version and bound times, and the time of one
+     PyTorch call computing the same function where there is one;
   4. the main path at full width: an rbf ``GPGState`` with D = 4,194,304
      and a window of 16 takes 24 observations of a seeded random walk (8
      evictions), then ``build_gp_serve_step`` answers 4 requests of 64
@@ -28,7 +29,19 @@ printed only when every phase passed:
      port's step counts are shown to solve the system; the distance to
      the exact solve (CG to 1e-12) is printed beside it. Then
      torch.profiler shows where the time of one more extend and one more
-     request goes.
+     request goes;
+  5. the batch path at full width, on the last 16 observations of phase
+     4's walk and its first query batch: the exact Woodbury solve from one
+     factor sweep, bulk conditioning (GPGState.from_data), Kronecker-
+     preconditioned CG with one and with 4 stacked right-hand sides,
+     posterior value and gradient at 64 queries, the GP-H and GP-X
+     directions, the poly2 closed-form solve of a quadratic, and the
+     quickstart's Hessian-probe query on phase 4's state. Every kernel
+     must have launched and no plain version may have run on a CUDA
+     tensor; every result is held against the same calls of the port on
+     the CPU in float64 (the CG solves against the float64 Woodbury
+     solve of each right-hand side). Then torch.profiler shows where the
+     time of one Woodbury solve and one CG solve goes.
 
 ``--out PATH`` also writes the detailed numbers there as JSON. Imports
 torch and the port, never JAX and nothing of the JAX package.
@@ -52,13 +65,23 @@ REQUESTS = 4
 QUERIES = 64
 NOISE = 1e-6
 CG_TOL = 1e-5
+# Phase 5: stacked right-hand sides, the batch CG tolerance and an explicit
+# step budget (gram_cg_solve's default, N * D, would be 67M host round
+# trips), and the quickstart's probe queries.
+R_STACK = 4
+BATCH_CG_TOL = 1e-6
+BATCH_MAXITER = 200
+PROBE_QUERIES = 2
 # Kernel vs plain version, relative to the output's max-abs: both sum up to
 # 4M f32 terms, in different orders (split-D partials vs cuBLAS).
 KERNEL_TOL = 1e-5
 # Port (f32 storage and accumulation) vs the float64 plain run of the same
 # method. Both take the port's CG step counts, which must bring the float64
 # run's residual to CG_TOL (1e-10 cannot be reached in f32), so what differs
-# is the f32 arithmetic of two solves stopped at 1e-5.
+# is the f32 arithmetic of two solves stopped at 1e-5. Phase 5 holds every
+# batch result to the same limit against the port's float64 CPU run; f32
+# against f64 on this walk measured 2e-5 at most at D = 4096 (the small
+# algebra does not depend on D at lam = 1/D).
 PATH_TOL = 1e-3
 # Published H100 SXM peaks (NVIDIA data sheet), at a 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -69,7 +92,17 @@ REPLACES = {
         "src/repro/kernels/fused_factor_build.py:49",
     "gram_update": "src/repro/kernels/gram_update.py:36",
     "fused_gram_mvm": "src/repro/kernels/fused_gram_mvm.py:73",
+    "fused_gram_norms": "src/repro/kernels/fused_gram_norms.py:22",
+    "skinny_gram": "src/repro/kernels/skinny_gram.py:28",
+    "small_matmul": "src/repro/kernels/gram_update.py:50",
+    "fused_gram_mvm_multi": "src/repro/kernels/fused_gram_mvm.py:138",
 }
+# Kernels whose source is not csrc/<name>.cu: the stacked Gram MVM is the
+# single one's library with R right-hand sides.
+SOURCE = {"fused_gram_mvm_multi": "fused_gram_mvm"}
+# The kernels phase 4's extend/serve path runs; phase 5 runs all seven.
+PATH4_KERNELS = ("fused_factor_build", "gram_update", "fused_gram_mvm",
+                 "small_matmul")
 
 
 def card_line() -> str:
@@ -117,9 +150,11 @@ def rel_err(got, want):
 # ---------------------------------------------------------------------------
 
 def kernel_cases(torch, d, bf16, lanes, gen):
-    """(kernel, label, kernel call, plain call, bytes, flops) at the main
-    path's shapes for one D and one stream storage; ``lanes`` passes lam
-    and v_scale as (D,) vectors instead of scalars."""
+    """(kernel, label, kernel call, plain call, bytes, flops, library
+    call or None) at the paths' shapes for one D and one stream storage;
+    ``lanes`` passes lam and v_scale as (D,) vectors instead of scalars.
+    The library call is one PyTorch call computing the same function (at
+    f32 and a scalar factor only), timed as a yardstick."""
     from repro_torch.kernels import ops, ref
 
     f32 = torch.float32
@@ -140,23 +175,25 @@ def kernel_cases(torch, d, bf16, lanes, gen):
     Xq, Xt, x = rnd(64, d, dtype=sdt), rnd(16, d, dtype=sdt), rnd(1, d,
                                                                   dtype=sdt)
     Z = rnd(16, d)                       # solve outputs stay f32
+    Vm = rnd(R_STACK, 16, d)             # stacked CG directions, f32
     K1, M = rnd(64, 16), rnd(64, 16)
     K1e, K2e = rnd(16, 16), rnd(16, 16)
     out = []
     na, nb = 64, 16
+    library = not (bf16 or lanes)
     out.append((
         "fused_factor_build", "query (64,16)" + tag,
         lambda: ops.fused_factor_build(Xq, Xt, Z, lam, v_scale=vs),
         lambda: ref.fused_factor_build_ref(Xq, Xt, Z, lam, vs),
         (na + nb) * d * es + nb * d * 4 + 2 * lane_bytes
         + 4 * (2 * na * nb + na + 2 * nb),
-        4 * na * nb * d + 4 * na * d + 7 * nb * d))
+        4 * na * nb * d + 4 * na * d + 7 * nb * d, None))
     out.append((
         "fused_factor_build", "border (16,1)" + tag,
         lambda: ops.fused_factor_build(Xt, x, None, lam),
         lambda: ref.fused_factor_build_ref(Xt, x, None, lam),
         17 * d * es + lane_bytes + 4 * (2 * 16 + 16 + 2),
-        4 * 16 * d + 4 * 16 * d + 7 * d))
+        4 * 16 * d + 4 * 16 * d + 7 * d, None))
     # the query path passes no v_scale; the per-lane case covers that
     # stride too
     gu_vs = vs if lanes else None
@@ -166,7 +203,7 @@ def kernel_cases(torch, d, bf16, lanes, gen):
         lambda: ref.gram_update_ref(K1, M, Z, Xt, lam, gu_vs),
         16 * d * 4 + 16 * d * es + 64 * d * 4 + (2 if lanes else 1)
         * lane_bytes + 4 * 2 * 64 * 16,
-        4 * 64 * 16 * d + 2 * 64 * d))
+        4 * 64 * 16 * d + 2 * 64 * d, None))
     for stationary in (True, False):
         out.append((
             "fused_gram_mvm", ("stationary" if stationary else "dot") + tag,
@@ -176,7 +213,48 @@ def kernel_cases(torch, d, bf16, lanes, gen):
                 K1e, K2e, Xt, Z, lam, stationary=s, noise=NOISE),
             16 * d * es + 16 * d * 4 + 16 * d * 4 + lane_bytes
             + 8 * 16 * 16,
-            6 * 16 * 16 * d + 5 * 16 * d))
+            6 * 16 * 16 * d + 5 * 16 * d, None))
+    # B4/B5 at the query shape and with the same tensor as A and B, as
+    # build_factors(X, X) calls them: the bound reads that tensor once,
+    # while the kernels read it twice
+    for label, A, B in (("query (64,16)", Xq, Xt), ("A=B (16,16)", Xt, Xt)):
+        na, nb = A.shape[0], B.shape[0]
+        rows_read = na if A is B else na + nb
+        P_out = torch.empty(na, nb, device="cuda")
+        out.append((
+            "fused_gram_norms", label + tag,
+            lambda A=A, B=B: ops.fused_gram_norms(A, B, lam),
+            lambda A=A, B=B: ref.fused_gram_norms_ref(A, B, lam),
+            rows_read * d * es + lane_bytes + 4 * (na * nb + na + nb),
+            2 * na * nb * d + 3 * (na + nb) * d, None))
+        out.append((
+            "skinny_gram", label + tag,
+            lambda A=A, B=B: ops.skinny_gram(A, B, lam),
+            lambda A=A, B=B: ref.skinny_gram_ref(A, B, lam),
+            rows_read * d * es + lane_bytes + 4 * na * nb,
+            2 * na * nb * d + na * d,
+            (lambda A=A, B=B, P_out=P_out: torch.addmm(
+                P_out, A, B.T, beta=0, alpha=1.0 / d)) if library else None))
+    W_out = torch.empty(16, d, device="cuda")
+    out.append((
+        "small_matmul", "(16,16)x(16,D)" + tag,
+        lambda: ops.small_matmul(K1e, Xt, vs),
+        lambda: ref.small_matmul_ref(K1e, Xt, vs),
+        16 * d * es + 16 * d * 4 + lane_bytes + 4 * 16 * 16,
+        2 * 16 * 16 * d + 16 * d,
+        (lambda: torch.addmm(W_out, K1e, Xt, beta=0, alpha=1.0 / d))
+        if library else None))
+    for stationary in (True, False):
+        out.append((
+            "fused_gram_mvm_multi",
+            f"R={R_STACK} " + ("stationary" if stationary else "dot") + tag,
+            lambda s=stationary: ops.fused_gram_mvm(
+                K1e, K2e, Xt, Vm, lam, stationary=s, noise=NOISE),
+            lambda s=stationary: ref.fused_gram_mvm_ref(
+                K1e, K2e, Xt, Vm, lam, stationary=s, noise=NOISE),
+            16 * d * es + 2 * R_STACK * 16 * d * 4 + lane_bytes
+            + 8 * 16 * 16,
+            R_STACK * (6 * 16 * 16 * d + 5 * 16 * d), None))
     return out
 
 
@@ -187,7 +265,7 @@ def phase_kernels(torch, detail):
              for lanes in ((False,) if d == D_PATH else (False, True))
              for bf16 in (False, True)]
     for d, bf16, lanes in cases:
-        for name, label, kern, plain, nbytes, flops in kernel_cases(
+        for name, label, kern, plain, nbytes, flops, lib in kernel_cases(
                 torch, d, bf16, lanes, gen):
             got = kern()
             again = kern()
@@ -209,12 +287,16 @@ def phase_kernels(torch, detail):
                 row["ms"] = time_ms(torch, kern)
                 row["plain_ms"] = time_ms(torch, plain)
                 row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+                row["library_ms"] = None if lib is None else time_ms(torch,
+                                                                     lib)
             rows.append(row)
-            print(f"  {name:19s} {label:19s} D={d:<8d} "
+            print(f"  {name:20s} {label:24s} D={d:<8d} "
                   f"{row['streams']:4s} rel {rel:.2e} (tol {KERNEL_TOL:g})"
                   + (f"  {row['ms']:.3f} ms, plain {row['plain_ms']:.3f}"
                      f" ms, bound {row['bound_ms']:.3f} ms"
-                     if "ms" in row else ""))
+                     if "ms" in row else "")
+                  + (f", library {row['library_ms']:.3f} ms"
+                     if row.get("library_ms") is not None else ""))
             if not rel <= KERNEL_TOL:
                 raise SystemExit(f"{name} {label} D={d} disagrees with "
                                  f"its plain version: {rel:.3e}")
@@ -361,7 +443,7 @@ def phase_main_path(torch, detail):
           f" main path wall {wall:.2f} s; peak memory {peak_gb:.1f} GB")
     print(f"  launches {launches}; plain versions on CUDA tensors "
           f"{plain_on_cuda}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in PATH4_KERNELS) <= 0:
         raise SystemExit(f"a kernel of the path never launched: {launches}")
     if any(plain_on_cuda.values()):
         raise SystemExit(f"plain versions ran on the card: {plain_on_cuda}")
@@ -426,21 +508,23 @@ def phase_main_path(torch, detail):
                          f"residual above {CG_TOL:g} after extends {short}")
     if not max(worst_z, worst_v, worst_g) <= PATH_TOL:
         raise SystemExit("the port disagrees with the float64 plain run")
-    detail["profile"] = profile_step(torch, st, serve, xs[-1] + 1.0,
-                                     gs[-1], queries[0])
-    return launches
+    ctx = {"launches": launches, "state": st, "z_window": z_last,
+           "X": X.float(), "G": G.float(), "Xq": queries[0]}
+    del X, G
+    detail["profile"] = profile_calls(torch, (
+        ("extend", lambda: st.extend(xs[-1] + 1.0, gs[-1])),
+        ("request", lambda: serve.query(queries[0]))))
+    return ctx
 
 
-def profile_step(torch, st, serve, x, g, Xq):
-    """Where the time goes: torch.profiler over one more windowed extend
-    and one request, after the checked run. Device busy time is the sum of
-    the device time of every kernel and copy; the rest of the host wall
-    time is device idle."""
+def profile_calls(torch, calls):
+    """Where the time goes: torch.profiler over each (name, call) after the
+    checked run. Device busy time is the sum of the device time of every
+    kernel and copy; the rest of the host wall time is device idle."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
-    for what, fn in (("extend", lambda: st.extend(x, g)),
-                     ("request", lambda: serve.query(Xq))):
+    for what, fn in calls:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -470,6 +554,216 @@ def profile_step(torch, st, serve, x, g, Xq):
         for k, t, c in rows[:6]:
             print(f"    {t / 1e3:8.3f} ms  x{c:<4d} {k[:70]}")
     return out
+
+# ---------------------------------------------------------------------------
+# Phase 5: the batch path, and the port's float64 run on the CPU
+# ---------------------------------------------------------------------------
+
+def batch_inputs(torch, ctx, gen):
+    """Phase 5's inputs on the card: phase 4's last window (X, G) and
+    first query batch, R_STACK - 1 seeded blocks scaled to G's norm, the
+    poly2 quadratic f(x) = 1/2 (x - x*)^T A (x - x*) with a log-uniform
+    diagonal A in [0.5, 100] at 16 seeded points, and a seeded probe."""
+    X, G = ctx["X"], ctx["G"]
+    d = X.shape[1]
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    gnorm = torch.linalg.norm(G)
+    blocks = [rnd(*G.shape) for _ in range(R_STACK - 1)]
+    Gs = torch.stack([G] + [b * (gnorm / torch.linalg.norm(b))
+                            for b in blocks])
+    u = torch.rand(d, generator=gen, device="cuda")
+    A = torch.exp(math.log(0.5) + u * (math.log(100.0) - math.log(0.5)))
+    x_star = rnd(d)
+    Xp = rnd(WINDOW, d)
+    return {"X": X, "G": G, "Xq": ctx["Xq"], "Gs": Gs, "A": A,
+            "x_star": x_star, "Xp": Xp, "Gp": (Xp - x_star) * A,
+            "g_c": -A * x_star, "v": rnd(d)}
+
+
+def run_batch(torch, inp, state, *, iterative):
+    """Phase 5's calls of the port on the device and dtype of ``inp``.
+
+    Returns (results, wall ms of each step, CG iterations). With
+    ``iterative=False`` (the float64 reference) the CG solves are replaced
+    by the exact Woodbury solve of each right-hand side, and bulk
+    conditioning is left out.
+    """
+    from repro_torch import (GPGState, build_factor_bundle, build_factors,
+                             get_kernel, gram_cg_solve, gram_cg_solve_multi,
+                             poly2_quadratic_solve, posterior_grad,
+                             posterior_value, woodbury_solve)
+    from repro_torch.optim import auto_lengthscale, gph_direction, \
+        gpx_direction
+
+    X, G, Xq = inp["X"], inp["G"], inp["Xq"]
+    dev, d = X.device, X.shape[1]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    spec, lam = get_kernel("rbf"), 1.0 / d
+    out, ms, iters = {}, {}, {}
+
+    def step(name, fn):
+        sync()
+        t0 = time.monotonic()
+        res = fn()
+        sync()
+        ms[name] = (time.monotonic() - t0) * 1e3
+        return res
+
+    def exact():
+        b = build_factor_bundle(spec, X, G, lam=lam, noise=NOISE)
+        return b, woodbury_solve(spec, b.factors, G, bundle=b)
+
+    b, out["Z_w"] = step("a_woodbury", exact)
+    f = b.factors
+    if iterative:
+        st = step("b_from_data", lambda: GPGState.from_data(
+            "rbf", X, G, window=WINDOW, lam=lam, noise=NOISE,
+            tol=BATCH_CG_TOL, maxiter=BATCH_MAXITER, dtype=X.dtype,
+            device=dev))
+        out["Z_b"], iters["b_from_data"] = st.Z, st.stats["cg_iters"]
+        res = step("c_cg", lambda: gram_cg_solve(
+            spec, f, G, tol=BATCH_CG_TOL, maxiter=BATCH_MAXITER))
+        out["Z_c"], iters["c_cg"] = res.x, res.iters
+        res = step("d_cg_multi", lambda: gram_cg_solve_multi(
+            spec, f, inp["Gs"], tol=BATCH_CG_TOL, maxiter=BATCH_MAXITER))
+        out["Z_d"], iters["d_cg_multi"] = res.x, res.iters
+    else:
+        out["Z_c"] = out["Z_w"]
+        out["Z_d"] = step("d_woodbury_each", lambda: torch.stack([
+            woodbury_solve(spec, f, Gr) for Gr in inp["Gs"]]))
+    out["value"] = step("e_value", lambda: posterior_value(
+        spec, Xq, f, out["Z_w"]))
+    out["grad"] = step("e_grad", lambda: posterior_grad(
+        spec, Xq, f, out["Z_w"]))
+    x_t = Xq[0]
+    g_t = test_function_grad(torch, x_t)
+    out["gph"] = step("f_gph", lambda: gph_direction(
+        X, G, x_t, g_t, kernel="rbf", lam=lam, noise=NOISE))
+    out["gpx"] = step("f_gpx", lambda: gpx_direction(
+        X, G, x_t, kernel="rbf", lam=auto_lengthscale(G)))
+
+    def poly2():
+        fp = build_factors(get_kernel("poly2"), inp["Xp"], lam=lam)
+        return poly2_quadratic_solve(fp, inp["Gp"], g_c=inp["g_c"])
+
+    out["Z_p"] = step("g_poly2", poly2)
+    pb = step("h_probe", lambda: state.posterior(Xq[:PROBE_QUERIES],
+                                                 probe=inp["v"]))
+    out["probe_value"], out["probe_grad"] = pb.value, pb.grad
+    out["hess_v"] = pb.hess_v
+    return out, ms, iters
+
+
+def cpu_state_copy(torch, st):
+    """Phase 4's state on the CPU in float64, through the converters."""
+    from repro_torch import convert
+
+    return convert.state_from_numpy(
+        convert.data_to_numpy(st.data), kernel=st.spec.name,
+        window=st.window, noise=st.noise, signal=st.signal,
+        jitter=st.jitter, deg_thresh=st.deg_thresh, tol=st.tol,
+        maxiter=st.maxiter, device="cpu", dtype=torch.float64)
+
+
+# (card result, float64 result it is held against); Z_b is the bulk-
+# conditioned state's CG solve, held against the exact solve.
+BATCH_PAIRS = (("Z_w", "Z_w"), ("Z_b", "Z_w"), ("Z_c", "Z_c"), ("Z_d", "Z_d"),
+               ("value", "value"), ("grad", "grad"), ("gph", "gph"),
+               ("gpx", "gpx"), ("Z_p", "Z_p"), ("probe_value", "probe_value"),
+               ("probe_grad", "probe_grad"), ("hess_v", "hess_v"))
+
+
+def batch_errors(torch, got, want):
+    """Relative error of each card result against the float64 run: in
+    norm (for a stack, the worst slab), and max-abs for the posterior
+    values, as in phase 4."""
+    errs = {}
+    for gk, wk in BATCH_PAIRS:
+        g, w = got[gk].double().cpu(), want[wk]
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise SystemExit(f"phase 5: {gk} is malformed: shape "
+                             f"{tuple(g.shape)}, want {tuple(w.shape)}")
+        if gk in ("value", "probe_value"):
+            errs[gk] = float((g - w).abs().max() / w.abs().max())
+        else:
+            g, w = g.reshape(-1, *w.shape[-2:]), w.reshape(-1, *w.shape[-2:])
+            errs[gk] = max(float(torch.linalg.norm(g[r] - w[r]) /
+                                 torch.linalg.norm(w[r]))
+                           for r in range(w.shape[0]))
+    return errs
+
+
+def phase_batch(torch, detail, ctx):
+    from repro_torch.core import get_kernel, gram_cg_solve, woodbury_solve
+    from repro_torch.core.gram import build_factors
+    from repro_torch.kernels import ops, ref
+
+    t_phase = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    inp = batch_inputs(torch, ctx, gen)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    plain_before = dict(ref.cuda_calls)
+    torch.cuda.reset_peak_memory_stats()
+    got, ms, iters = run_batch(torch, inp, ctx["state"], iterative=True)
+    launches = dict(ops.launches)
+    plain_on_cuda = {k: ref.cuda_calls[k] - plain_before[k]
+                     for k in ref.cuda_calls}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    card_s = sum(ms.values()) / 1e3
+    for name, t in ms.items():
+        print(f"  {name:16s} {t:9.1f} ms"
+              + (f"  cg_iters {iters[name]}" if name in iters else ""))
+    print(f"  launches {launches}; plain versions on CUDA tensors "
+          f"{plain_on_cuda}; peak memory {peak_gb:.1f} GB")
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"a kernel of the batch path never launched: "
+                         f"{launches}")
+    if any(plain_on_cuda.values()):
+        raise SystemExit(f"plain versions ran on the card: {plain_on_cuda}")
+    over = [k for k, n in iters.items() if n >= BATCH_MAXITER]
+    if over:
+        raise SystemExit(f"CG used its whole budget in {over}: {iters}")
+
+    t0 = time.monotonic()
+    cpu = {k: v.double().cpu() for k, v in inp.items()}
+    want, ref_ms, _ = run_batch(torch, cpu, cpu_state_copy(torch,
+                                                           ctx["state"]),
+                                iterative=False)
+    ref_s = time.monotonic() - t0
+    errs = batch_errors(torch, got, want)
+    errs["Z_b_vs_Z_w"] = float(torch.linalg.norm(got["Z_b"] - got["Z_w"]) /
+                               torch.linalg.norm(got["Z_w"]))
+    zw = want["Z_w"]
+    z_stream = float(torch.linalg.norm(ctx["z_window"].double().cpu() - zw)
+                     / torch.linalg.norm(zw))
+    for k, e in errs.items():
+        print(f"  {k:14s} rel err {e:.2e} (tol {PATH_TOL:g})")
+    print(f"  phase 4's streaming Z (CG to {CG_TOL:g}) vs the float64 "
+          f"Woodbury Z of the same window: {z_stream:.2e} (not gated)")
+    print(f"  float64 reference on the CPU: {ref_s:.1f} s")
+    bad = {k: e for k, e in errs.items() if not e <= PATH_TOL}
+
+    f = build_factors(get_kernel("rbf"), inp["X"], lam=1.0 / inp["X"].shape[1],
+                      noise=NOISE)
+    spec, G = get_kernel("rbf"), inp["G"]
+    profile = profile_calls(torch, (
+        ("woodbury_solve", lambda: woodbury_solve(spec, f, G)),
+        ("gram_cg_solve", lambda: gram_cg_solve(
+            spec, f, G, tol=BATCH_CG_TOL, maxiter=BATCH_MAXITER))))
+    wall = time.monotonic() - t_phase
+    print(f"  phase 5 wall {wall:.1f} s (card steps {card_s:.2f} s)")
+    detail["batch_path"] = {
+        "d": inp["X"].shape[1], "n": WINDOW, "r_stack": R_STACK,
+        "queries": inp["Xq"].shape[0], "cg_tol": BATCH_CG_TOL,
+        "step_ms": ms, "cg_iters": iters, "launches": launches,
+        "plain_on_cuda": plain_on_cuda, "peak_memory_gb": peak_gb,
+        "rel_err": errs, "tol": PATH_TOL, "z_stream_vs_woodbury": z_stream,
+        "reference_s": ref_s, "reference_step_ms": ref_ms,
+        "profile": profile, "wall_s": wall}
+    if bad:
+        raise SystemExit(f"phase 5 disagrees with the float64 run: {bad}")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -504,7 +798,8 @@ def main(argv=None) -> int:
     print("phase 2: build")
     seconds = _build.build()
     detail["build_s"] = seconds
-    print(f"  built {len(_build.SIGNATURES)} kernels in {seconds:.1f} s")
+    print(f"  built {len(_build.SIGNATURES)} kernel libraries in "
+          f"{seconds:.1f} s")
     for name in _build.SIGNATURES:
         regs = sorted({line.split("Used ")[1].split(",")[0]
                        for line in _build.build_log(name).splitlines()
@@ -515,7 +810,12 @@ def main(argv=None) -> int:
     main_rows = phase_kernels(torch, detail)
 
     print("phase 4: the main path")
-    launches = phase_main_path(torch, detail)
+    ctx = phase_main_path(torch, detail)
+
+    print("phase 5: the batch path")
+    batch_launches = phase_batch(torch, detail, ctx)
+    launches = {k: ctx["launches"][k] + batch_launches[k]
+                for k in batch_launches}
 
     if out is not None:
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -523,7 +823,8 @@ def main(argv=None) -> int:
     kernels = [{
         "name": name,
         "route": "cuda",
-        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "source": "src/repro_torch/kernels/csrc/"
+                  f"{SOURCE.get(name, name)}.cu",
         "replaces": REPLACES[name],
         "launches": launches[name],
         "max_abs_err": row["max_abs_err"],
@@ -531,7 +832,7 @@ def main(argv=None) -> int:
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
-        "library_ms": None,
+        "library_ms": row["library_ms"],
     } for name, row in main_rows.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

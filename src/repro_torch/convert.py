@@ -1,10 +1,11 @@
-"""Carry a posterior state across from the JAX package, and back.
+"""Carry a posterior state or a factor set across from the JAX package,
+and back.
 
-The JAX package's ``GPGData`` is handed over as a dict of numpy arrays
-(``{k: np.asarray(v) for k, v in data._asdict().items()}``), so this module
-needs neither JAX nor the ``repro`` package. The host knobs that the JAX
-``GPGState`` keeps beside its data (kernel, window, noise, jitter, tol, ...)
-are passed as keyword arguments.
+The JAX package's ``GPGData`` and ``GramFactors`` are handed over as dicts
+of numpy arrays (``{k: np.asarray(v) for k, v in x._asdict().items()}``,
+None kept as None), so this module needs neither JAX nor the ``repro``
+package. The host knobs that the JAX ``GPGState`` keeps beside its data
+(kernel, window, noise, jitter, tol, ...) are passed as keyword arguments.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import backend
+from repro_torch.core.gram import GramFactors
 from repro_torch.core.state import GPGData, GPGState
 
 _STREAMS = ("X", "G", "Xt", "K1e", "K2e", "L", "Z", "lam")
@@ -58,3 +60,33 @@ def state_from_numpy(arrays: dict, *, kernel: str, window: int | None = None,
                   dtype=data.X.dtype, device=data.X.device)
     st.data = data
     return st
+
+
+def factors_from_numpy(arrays: dict, *, device=None,
+                       dtype=None) -> GramFactors:
+    """The port's ``GramFactors`` from the numpy arrays of a JAX one.
+
+    The JAX ``shift`` field (a bf16 stream frame of its query path) has no
+    counterpart here: factors carrying one are refused.
+    """
+    if arrays.get("shift") is not None:
+        raise ValueError("factors with a stream shift cannot be carried "
+                         "across: pass the unshifted f32 factors")
+    device = backend.resolve_device(device)
+    dtype = torch.float32 if dtype is None else dtype
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    c = arrays.get("c")
+    return GramFactors(K1e=t(arrays["K1e"]), K2e=t(arrays["K2e"]),
+                       Xt=t(arrays["Xt"]), lam=t(arrays["lam"]),
+                       noise=float(arrays.get("noise", 0.0)),
+                       c=None if c is None else t(c))
+
+
+def factors_to_numpy(f: GramFactors) -> dict:
+    """The numpy arrays of a port ``GramFactors``, keyed as the JAX
+    fields."""
+    a = lambda x: np.asarray(x.detach().cpu().numpy()
+                             if isinstance(x, torch.Tensor) else x)
+    return {"K1e": a(f.K1e), "K2e": a(f.K2e), "Xt": a(f.Xt), "lam": a(f.lam),
+            "noise": float(f.noise), "c": None if f.c is None else a(f.c),
+            "shift": None}

@@ -1,6 +1,6 @@
 """Batched posterior query serving (factor reuse; zero re-solves).
 
-Counterpart of ``repro/core/query.py`` (the mean path in this slice). Once
+Counterpart of ``repro/core/query.py`` (means and Hessian probes). Once
 a ``GPGState`` (or a plain ``GramFactors`` + solved ``Z``) exists, any number
 of posterior queries are cross-covariance contractions against the SAME
 cached solve: O(Q N D) for Q query points, no inner system touched again.
@@ -12,9 +12,11 @@ contraction and row-dot correction in the same read of Xq/Xt/Z) plus one
 
   value:    posterior mean of f       (Q,)  -- up to the prior constant
   grad:     posterior mean of grad f  (Q, D) -- paper Eq. 26
+  hess_v:   posterior mean Hessian @ probe (Q, D) -- paper Eq. 12, one
+            query at a time, so no (Q, D, 2N) factor is ever held
 
-Hessian probes and posterior stds need ``core/inference.py`` and
-``hyper/``, which later slices port; asking for them raises.
+Posterior stds need ``hyper/``, which a later slice ports; asking for
+them raises.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 
 from . import backend
 from .gram import GramFactors
+from .inference import posterior_hessian
 from .kernels import KernelSpec
 from .state import _later
 
@@ -102,10 +105,28 @@ def _mean_assemble(spec: KernelSpec, strips, Xq: Tensor, f: GramFactors,
 
 
 def _query_chunk(spec: KernelSpec, Xq: Tensor, f: GramFactors, Z: Tensor,
+                 probe: Optional[Tensor] = None,
                  stream_dt=None) -> PosteriorBatch:
-    """One microbatch: fused cross-covariance contractions, no solves."""
+    """One microbatch: fused cross-covariance contractions, no solves.
+
+    The Hessian probe runs on the unquantized Xq and factors; each query's
+    (D, 2N) Hessian factor is built, applied and dropped in turn.
+    """
     value, grad = _mean_chunk(spec, Xq, f, Z, stream_dt)
-    return PosteriorBatch(value=value, grad=grad)
+    hess_v = None
+    if probe is not None:
+        hess_v = torch.stack([posterior_hessian(spec, xq, f, Z).matvec(probe)
+                              for xq in Xq])
+    return PosteriorBatch(value=value, grad=grad, hess_v=hess_v)
+
+
+def cat_batches(chunks, with_probe: bool) -> PosteriorBatch:
+    """One PosteriorBatch from the microbatches of a request."""
+    return PosteriorBatch(
+        value=torch.cat([c.value for c in chunks]),
+        grad=torch.cat([c.grad for c in chunks]),
+        hess_v=(torch.cat([c.hess_v for c in chunks]) if with_probe
+                else None))
 
 
 def posterior_batch(
@@ -120,15 +141,14 @@ def posterior_batch(
     return_grad_std: bool = False,
     precision: Optional[str] = None,
 ) -> PosteriorBatch:
-    """Evaluate posterior mean value/grad at Xq (Q, D).
+    """Evaluate posterior mean value/grad (and Hessian @ ``probe``) at Xq
+    (Q, D).
 
     ``microbatch`` bounds the per-chunk query count (peak memory
     O(microbatch * N * D)); None evaluates in one chunk. Q queries cost
     O(Q N D) and perform ZERO solves. ``precision='bf16'`` streams Xq/Xt in
-    bf16 storage (f32 accumulation and outputs).
+    bf16 storage for the means (f32 accumulation and outputs).
     """
-    if probe is not None:
-        raise _later("Hessian-probe queries", "the inference slice (A4)")
     if return_std or return_grad_std:
         raise _later("posterior stds", "the model-selection slice (A7)")
     Xq = torch.atleast_2d(Xq)
@@ -136,27 +156,25 @@ def posterior_batch(
     stream_dt = sd if sd != torch.float32 else None
     q = Xq.shape[0]
     if not microbatch or microbatch >= q:
-        return _query_chunk(spec, Xq, f, Z, stream_dt=stream_dt)
-    chunks = [_query_chunk(spec, Xq[i:i + microbatch], f, Z,
-                           stream_dt=stream_dt)
+        return _query_chunk(spec, Xq, f, Z, probe, stream_dt)
+    chunks = [_query_chunk(spec, Xq[i:i + microbatch], f, Z, probe,
+                           stream_dt)
               for i in range(0, q, microbatch)]
-    return PosteriorBatch(value=torch.cat([c.value for c in chunks]),
-                          grad=torch.cat([c.grad for c in chunks]))
+    return cat_batches(chunks, probe is not None)
 
 
 def make_query_fn(spec: KernelSpec, *, with_probe: bool = False,
                   with_std: bool = False, with_grad_std: bool = False):
-    """A (f, Z, Xq) -> PosteriorBatch evaluator of one microbatch.
+    """A (f, Z, Xq[, probe]) -> PosteriorBatch evaluator of one microbatch.
 
     The factors and Z are arguments, not captures, so one function serves
-    every state revision (``train/serve.py``).
+    every state revision (``train/serve.py``). ``with_probe`` is accepted
+    for the JAX signature: the evaluator takes ``probe`` either way.
     """
-    if with_probe:
-        raise _later("Hessian-probe queries", "the inference slice (A4)")
     if with_std or with_grad_std:
         raise _later("posterior stds", "the model-selection slice (A7)")
 
-    def fn(f: GramFactors, Z: Tensor, Xq: Tensor) -> PosteriorBatch:
-        return _query_chunk(spec, Xq, f, Z)
-
+    def fn(f: GramFactors, Z: Tensor, Xq: Tensor,
+           probe: Optional[Tensor] = None) -> PosteriorBatch:
+        return _query_chunk(spec, Xq, f, Z, probe)
     return fn

@@ -13,6 +13,8 @@ Counterpart of ``repro/core/state.py``:
                   iteration).
   ``gpg_evict`` -- drops the oldest observation: a rank-1 Cholesky update
                   restores L in O(N^2).
+  ``gpg_refactor`` -- the full O(N^2 D + N^3) rebuild (bulk conditioning
+                  through ``GPGState.from_data``, a Lambda refresh).
 
 The functions return new tensors and leave their inputs as they were, as
 the JAX functions do. Counters (count, n_solve, ...) are host integers:
@@ -196,17 +198,17 @@ def _solve(spec: KernelSpec, data: GPGData, rhs: Tensor, z0: Tensor, *,
     """Warm-started preconditioned CG on the masked padded Gram system.
 
     The preconditioner is the free Kronecker factor B = K1n x Lam, applied
-    as one (N, N) @ (N, D) product with K1n^-1 formed once per solve from
-    the cached Cholesky (the output keeps the row-major layout the Gram MVM
-    kernel reads), plus ONE fused Gram MVM per iteration.
+    as one ``backend.kron_precond`` pass (K1n^-1 formed once per solve from
+    the cached Cholesky, 1/lam fused into the same pass), plus ONE fused
+    Gram MVM per iteration.
     """
     mask = _row_mask(data)[:, None]
     f = GramFactors(K1e=data.K1e, K2e=data.K2e,
                     Xt=torch.where(mask, data.Xt, 0.0), lam=data.lam,
                     noise=float(noise), c=data.c)
     mv = lambda V: gram_matvec(f, V, stationary=spec.is_stationary)
-    K1n_inv = torch.cholesky_inverse(data.L)
-    M_inv = lambda V: (K1n_inv @ V) / data.lam
+    K1n_inv = torch.cholesky_inverse(data.L).contiguous()
+    M_inv = lambda V: backend.kron_precond(K1n_inv, V, data.lam)
     res = cg(mv, torch.where(mask, rhs, 0.0), x0=torch.where(mask, z0, 0.0),
              tol=tol, maxiter=maxiter, M_inv=M_inv)
     Z = torch.where(mask & torch.isfinite(res.x), res.x, 0.0)
@@ -329,6 +331,47 @@ def gpg_evict(
     )
     if solve:
         data = _solve(spec, data, data.G, data.Z, noise=noise, tol=tol,
+                      maxiter=_default_maxiter(data, maxiter))
+    return data
+
+
+def gpg_refactor(
+    spec: KernelSpec,
+    data: GPGData,
+    lam=None,
+    *,
+    noise: float = 0.0,
+    jitter: float = 1e-10,
+    tol: float = 1e-10,
+    maxiter: Optional[int] = None,
+    solve: bool = True,
+    rhs: Optional[Tensor] = None,
+) -> GPGData:
+    """Full O(N^2 D + N^3) rebuild of factors + Cholesky (+ solve).
+
+    The explicit refactorization entry point: a Lambda refresh and bulk
+    conditioning (``GPGState.from_data``) land here. One ``pairwise_r``
+    pass over the masked strip, never O(N^6).
+    """
+    if lam is not None:
+        data = data._replace(lam=torch.as_tensor(lam, dtype=data.X.dtype,
+                                                 device=data.X.device))
+    mask = _row_mask(data)
+    mm = mask[:, None] & mask[None, :]
+    Xt = data.X if (spec.is_stationary or data.c is None) else \
+        data.X - data.c
+    Xt = torch.where(mask[:, None], Xt, 0.0)
+    r = backend.pairwise_r(spec, Xt, Xt, data.lam)
+    data = data._replace(
+        Xt=Xt,
+        K1e=torch.where(mm, spec.k1e(r), 0.0),
+        K2e=torch.where(mm, spec.k2e(r), 0.0),
+        n_refactor=data.n_refactor + 1,
+    )
+    data = data._replace(L=_full_chol(data, noise, jitter))
+    if solve:
+        data = _solve(spec, data, data.G if rhs is None else rhs, data.Z,
+                      noise=noise, tol=tol,
                       maxiter=_default_maxiter(data, maxiter))
     return data
 
@@ -480,15 +523,40 @@ class GPGState:
             X=pad_r(d0.X), G=pad_r(d0.G), Xt=pad_r(d0.Xt), Z=pad_r(d0.Z),
             K1e=pad_nn(d0.K1e), K2e=pad_nn(d0.K2e), L=L)
 
-    # -- branches of the JAX state that later slices port ------------------
-
     @classmethod
-    def from_data(cls, kernel, X, G, **kw) -> "GPGState":
-        raise _later("GPGState.from_data (bulk conditioning)",
-                     "the factors slice (A2: pairwise_r/build_factors)")
+    def from_data(cls, kernel, X: Tensor, G: Tensor, **kw) -> "GPGState":
+        """Bulk-condition on (X, G) with ONE solve (then stream via extend).
+
+        Keywords go to the constructor; ``device`` defaults to ``"cuda"``
+        as there.
+        """
+        X = torch.atleast_2d(torch.as_tensor(X))
+        n, d = X.shape
+        kw.setdefault("capacity", max(n, 1))
+        st = cls(kernel, d, **kw)
+        if st.window and n > st.window:
+            raise ValueError(f"{n} observations exceed window={st.window}")
+        if n > st.data.capacity:
+            raise ValueError(f"{n} observations exceed "
+                             f"capacity={st.data.capacity}")
+        Xp = torch.zeros_like(st.data.X)
+        Gp = torch.zeros_like(st.data.G)
+        Xp[:n] = X
+        Gp[:n] = torch.as_tensor(G)
+        st.data = st.data._replace(X=Xp, G=Gp, count=n)
+        st.data = gpg_refactor(st.spec, st.data, noise=st._noise_eff,
+                               jitter=st.jitter, tol=st.tol,
+                               maxiter=st.maxiter)
+        return st
 
     def refactor(self, lam=None) -> "GPGState":
-        raise _later("GPGState.refactor", "the factors slice (A2)")
+        """Explicit full refactorization (e.g. after a Lambda refresh)."""
+        self.data = gpg_refactor(self.spec, self.data, lam,
+                                 noise=self._noise_eff, jitter=self.jitter,
+                                 tol=self.tol, maxiter=self.maxiter)
+        return self
+
+    # -- branches of the JAX state that later slices port ------------------
 
     def mll(self, **kw):
         raise _later("GPGState.mll", "the model-selection slice (A7)")

@@ -35,11 +35,19 @@ SIGNATURES = {
     "gram_update": ("gu_launch", [
         _I, _I, _P, _P, _P, _P, _P, _LL, _P, _LL, _F, _I, _I, _LL, _P, _P]),
     "fused_gram_mvm": ("fgm_launch", [
-        _I, _I, _P, _P, _P, _P, _P, _LL, _F, _I, _I, _LL, _P, _P, _P, _P]),
+        _I, _I, _P, _P, _P, _P, _P, _LL, _F, _I, _I, _I, _LL, _P, _P, _P,
+        _P]),
+    "skinny_gram": ("sg_launch", [
+        _I, _I, _P, _P, _P, _LL, _I, _I, _LL, _P, _P, _P]),
+    "fused_gram_norms": ("fgn_launch", [
+        _I, _I, _P, _P, _P, _LL, _I, _I, _LL, _P, _P, _P]),
+    "small_matmul": ("sm_launch", [
+        _I, _P, _P, _P, _LL, _I, _I, _LL, _P, _P]),
 }
 # Sources whose kernels reduce over D in two stages (csrc/splitk.cuh); their
 # libraries export the split plan.
-SPLIT = ("fused_factor_build", "fused_gram_mvm")
+SPLIT = ("fused_factor_build", "fused_gram_mvm", "skinny_gram",
+         "fused_gram_norms")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

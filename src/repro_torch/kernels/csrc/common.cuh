@@ -59,3 +59,10 @@ int with_types(int c1, int c2, F&& f) {
 }
 
 }  // namespace rt
+
+// Every library exports the message of its launchers' return codes (each
+// source is compiled into a library of its own).
+RT_EXPORT const char* rt_error_string(int code) {
+  return code == RT_BAD_SHAPE ? "shape or dtype not supported by the kernel"
+                              : cudaGetErrorString(static_cast<cudaError_t>(code));
+}

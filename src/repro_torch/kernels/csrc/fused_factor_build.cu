@@ -21,30 +21,6 @@
 // CUDA-core code; wgmma and TMA are later work.
 #include "splitk.cuh"
 
-namespace {
-
-template <typename TA, typename TV>
-int launch(const void* A, const void* B, const void* V, const float* lam,
-           rt::i64 lam_stride, const float* vs, rt::i64 vs_stride, int na,
-           int nb, rt::i64 D, float* part, float* out, cudaStream_t stream) {
-  const rt::i64 smem = rt::split_smem_bytes(na, nb);
-  if (smem > rt::kSmemBytes) return RT_BAD_SHAPE;
-  const rt::SplitPlan plan = rt::split_plan(D);
-  rt::split_partials<TA, TA, TV, true>
-      <<<plan.ctas, rt::kSplitThreads, smem, stream>>>(
-          static_cast<const TA*>(A), static_cast<const TA*>(B),
-          static_cast<const TV*>(V), lam, lam_stride, vs, vs_stride, na, nb,
-          D, plan.chunk, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int stride = rt::split_stride(na, nb, true);
-  rt::reduce_partials<<<(stride + 255) / 256, 256, 0, stream>>>(
-      part, plan.ctas, stride, out);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
 // A and B share the storage dtype ab_dtype; V has v_dtype. out holds P
 // (na*nb), C (nb*na), na, nb, tv back to back; part holds
 // rt_split_plan(D) * (2 na nb + na + 2 nb) floats of scratch.
@@ -55,13 +31,11 @@ RT_EXPORT int ffb_launch(int ab_dtype, int v_dtype, const void* A,
                          float* part, float* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return rt::with_types(ab_dtype, v_dtype, [&](auto ta, auto tv) {
-    return launch<decltype(ta), decltype(tv)>(A, B, V, lam, lam_stride, vs,
-                                              vs_stride, na, nb, D, part, out,
-                                              st);
+    using TA = decltype(ta);
+    using TV = decltype(tv);
+    return rt::split_reduce<TA, TA, TV, rt::kSplitFull>(
+        static_cast<const TA*>(A), static_cast<const TA*>(B),
+        static_cast<const TV*>(V), lam, lam_stride, vs, vs_stride, na, nb, D,
+        part, out, st);
   });
-}
-
-RT_EXPORT const char* rt_error_string(int code) {
-  return code == RT_BAD_SHAPE ? "shape or dtype not supported by the kernel"
-                              : cudaGetErrorString(static_cast<cudaError_t>(code));
 }

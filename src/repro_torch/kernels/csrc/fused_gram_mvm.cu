@@ -1,26 +1,38 @@
-// fused_gram_mvm for Hopper (sm_90a): the whole Alg.-2 Gram MVM
+// fused_gram_mvm for Hopper (sm_90a): the whole Alg.-2 Gram MVM of R
+// stacked right-hand sides V (R, N, D) against one set of factors
+// (R = 1 for a single V),
 //
-//   W = (K1e @ V + small @ Xt) * lam + noise * V
-//   dot:         small = K2e * M
-//   stationary:  small = diag(rowsum(Mt)) - Mt,  Mt = K2e * (M - diag(M)[None, :])
-//   with M = (Xt * lam) @ V^T.
+//   W_r = (K1e @ V_r + small_r @ Xt) * lam + noise * V_r
+//   dot:         small_r = K2e * M_r
+//   stationary:  small_r = diag(rowsum(Mt)) - Mt,  Mt = K2e * (M_r - diag(M_r)[None, :])
+//   with M_r = (Xt * lam) @ V_r^T.
 //
-// Replaces the TPU kernel src/repro/kernels/fused_gram_mvm.py:73 (_kernel),
-// its _small_from_m epilogue (:59) and fused_gram_mvm_padded (:121). It
-// carries every CG iteration of extend, evict and resolve.
+// Replaces two TPU kernels: src/repro/kernels/fused_gram_mvm.py:73
+// (_kernel), its _small_from_m epilogue (:59) and fused_gram_mvm_padded
+// (:121), which carry every CG iteration of extend, evict and resolve; and
+// the stacked src/repro/kernels/fused_gram_mvm.py:138 (_kernel_multi)
+// behind fused_gram_mvm_multi_padded (:193), which carries every iteration
+// of gram_cg_solve_multi.
 //
-// What bounds it on an H100: bytes. The function reads Xt and V and writes
-// W, 3 N elements a column, for about 6 N^2 f32 operations; at N = 16,
-// f32, that is 192 bytes against 1,536 operations, 8 operations a byte,
-// under the card's ~20. This kernel moves 5 N elements a column, since
-// each phase reads Xt and V again.
+// What bounds it on an H100: bytes. The function reads Xt once and the R
+// blocks of V, and writes the R blocks of W: (1 + 2R) N elements a column
+// for about 6 R N^2 f32 operations; at N = 16, f32 that is 8 operations a
+// byte for R = 1 and about 11 for R = 4, under the card's ~20. This kernel
+// moves (2 + 3R) N elements a column, since each phase reads Xt and V
+// again.
 //
 // Design: the TPU kernel's two-phase grid with a resident M becomes three
 // launches in one stream, so stream order is the phase barrier:
-//   1. split_partials (P only): per-CTA partials of M over slices of D;
-//   2. mvm_small: one CTA adds the partials in CTA order and folds small;
-//   3. gram_stream: the output stream of phase 1.
-// A cooperative single launch with a grid barrier is later work.
+//   1. split_partials (P only) with A = Xt and B = V seen as one (R*N, D)
+//      matrix: per-CTA partials of the (N, R*N) product [M_0 ... M_{R-1}],
+//      each tile of Xt read once for all R;
+//   2. mvm_small, one CTA per r: the partials of M_r added in CTA order,
+//      then small_r folded in shared memory;
+//   3. gram_stream with R stacked outputs: each thread stages its column
+//      of Xt once and of every V_r, and writes W_r for all r.
+// The shared-memory budget bounds R * N^2 (all small_r sit in every CTA of
+// the output stream); past it the launcher refuses the shape. A
+// cooperative single launch with a grid barrier is later work.
 #include "gram_stream.cuh"
 #include "mvm_epilogue.cuh"
 #include "splitk.cuh"
@@ -28,52 +40,53 @@
 namespace {
 
 template <typename TX, typename TV>
-int launch(const float* K1e, const float* K2e, const void* Xt, const void* V,
+int launch(const float* K1e, const float* K2e, const TX* Xt, const TV* V,
            const float* lam, rt::i64 lam_stride, float noise, int stationary,
-           int n, rt::i64 D, float* part, float* small, float* W,
+           int R, int n, rt::i64 D, float* part, float* small, float* W,
            cudaStream_t stream) {
-  const rt::i64 split_smem = rt::split_smem_bytes(n, n);
+  const rt::i64 split_smem = rt::split_smem_bytes(n, R * n, rt::kSplitP);
   const rt::i64 small_smem = rt::mvm_small_smem_bytes(n);
-  const int cols = rt::stream_cols(n, n);
-  if (split_smem > rt::kSmemBytes || small_smem > rt::kSmemBytes || cols == 0)
+  const int cols = rt::stream_cols(n, n, R, true);
+  if (R < 1 || split_smem > rt::kSmemBytes || small_smem > rt::kSmemBytes ||
+      cols == 0)
     return RT_BAD_SHAPE;
-  const TX* x = static_cast<const TX*>(Xt);
-  const TV* v = static_cast<const TV*>(V);
   const rt::SplitPlan plan = rt::split_plan(D);
-  rt::split_partials<TX, TV, TV, false>
+  rt::split_partials<TX, TV, TV, rt::kSplitP>
       <<<plan.ctas, rt::kSplitThreads, split_smem, stream>>>(
-          x, v, v, lam, lam_stride, nullptr, 0, n, n, D, plan.chunk, part);
+          Xt, V, nullptr, lam, lam_stride, nullptr, 0, n, R * n, D,
+          plan.chunk, part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  rt::mvm_small<<<1, 256, small_smem, stream>>>(part, plan.ctas, n, K2e,
+  rt::mvm_small<<<R, 256, small_smem, stream>>>(part, plan.ctas, n, K2e,
                                                 stationary, small);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const rt::i64 blocks = (D + cols - 1) / cols;
-  rt::gram_stream<TV, TX><<<blocks, cols, rt::stream_smem_bytes(n, n, cols),
-                            stream>>>(K1e, small, v, x, lam, lam_stride,
-                                      nullptr, 0, noise, n, n, D, W);
+  const rt::i64 smem = rt::stream_smem_bytes(n, n, cols, R, true);
+  if (R == 1)
+    rt::gram_stream<TV, TX, true, 1><<<blocks, cols, smem, stream>>>(
+        K1e, small, V, Xt, lam, lam_stride, nullptr, 0, noise, 1, n, n, D, W);
+  else
+    rt::gram_stream<TV, TX, true, 0><<<blocks, cols, smem, stream>>>(
+        K1e, small, V, Xt, lam, lam_stride, nullptr, 0, noise, R, n, n, D, W);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Xt has storage dtype x_dtype, V has v_dtype. part holds
-// rt_split_plan(D) * n * n floats of scratch, small n * n floats.
+// Xt (n, D) has storage dtype x_dtype, V (R, n, D) has v_dtype. part holds
+// rt_split_plan(D) * R * n * n floats of scratch, small R * n * n floats.
+// Returns RT_BAD_SHAPE when a phase's staging does not fit the
+// shared-memory budget, else the launches' CUDA error code.
 RT_EXPORT int fgm_launch(int x_dtype, int v_dtype, const float* K1e,
                          const float* K2e, const void* Xt, const void* V,
                          const float* lam, long long lam_stride, float noise,
-                         int stationary, int n, long long D, float* part,
-                         float* small, float* W, void* stream) {
+                         int stationary, int R, int n, long long D,
+                         float* part, float* small, float* W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return rt::with_types(x_dtype, v_dtype, [&](auto tx, auto tv) {
-    return launch<decltype(tx), decltype(tv)>(K1e, K2e, Xt, V, lam,
-                                              lam_stride, noise, stationary,
-                                              n, D, part, small, W, st);
+    return launch(K1e, K2e, static_cast<const decltype(tx)*>(Xt),
+                  static_cast<const decltype(tv)*>(V), lam, lam_stride, noise,
+                  stationary, R, n, D, part, small, W, st);
   });
-}
-
-RT_EXPORT const char* rt_error_string(int code) {
-  return code == RT_BAD_SHAPE ? "shape or dtype not supported by the kernel"
-                              : cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -22,14 +22,13 @@ int launch(const float* K1, const float* M, const void* V, const void* X,
            const float* lam, rt::i64 lam_stride, const float* vs,
            rt::i64 vs_stride, float noise, int nq, int n, rt::i64 D, float* W,
            cudaStream_t stream) {
-  const int cols = rt::stream_cols(nq, n);
+  const int cols = rt::stream_cols(nq, n, 1, true);
   if (cols == 0 || (noise != 0.f && nq != n)) return RT_BAD_SHAPE;
   const rt::i64 blocks = (D + cols - 1) / cols;
-  rt::gram_stream<TV, TX><<<blocks, cols, rt::stream_smem_bytes(nq, n, cols),
-                            stream>>>(K1, M, static_cast<const TV*>(V),
-                                      static_cast<const TX*>(X), lam,
-                                      lam_stride, vs, vs_stride, noise, nq, n,
-                                      D, W);
+  rt::gram_stream<TV, TX, true, 1>
+      <<<blocks, cols, rt::stream_smem_bytes(nq, n, cols, 1, true), stream>>>(
+          K1, M, static_cast<const TV*>(V), static_cast<const TX*>(X), lam,
+          lam_stride, vs, vs_stride, noise, 1, nq, n, D, W);
   return cudaGetLastError();
 }
 
@@ -48,9 +47,4 @@ RT_EXPORT int gu_launch(int v_dtype, int x_dtype, const float* K1,
                                               vs, vs_stride, noise, nq, n, D,
                                               W, st);
   });
-}
-
-RT_EXPORT const char* rt_error_string(int code) {
-  return code == RT_BAD_SHAPE ? "shape or dtype not supported by the kernel"
-                              : cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,11 +1,13 @@
 // The O(N^2) middle of the Alg.-2 Gram MVM: reduce the per-CTA partials
-// of M = (Xt*lam) V^T in CTA order, then fold Alg. 2's small matrix
+// of M_r = (Xt*lam) V_r^T in CTA order, then fold Alg. 2's small matrix
 //
-//   dot:         small = K2e * M
-//   stationary:  small = diag(rowsum(Mt)) - Mt,  Mt = K2e * (M - diag(M)[None, :])
+//   dot:         small_r = K2e * M_r
+//   stationary:  small_r = diag(rowsum(Mt)) - Mt,  Mt = K2e * (M_r - diag(M_r)[None, :])
 //
-// in one CTA, entirely in shared memory. This is the TPU kernel's
-// _small_from_m epilogue; it runs between the two D-streams.
+// in one CTA per right-hand side r (gridDim.x = R), entirely in shared
+// memory. This is the TPU kernel's _small_from_m epilogue; it runs between
+// the two D-streams. A partial row holds the (n, R*n) product of Xt with
+// the stacked V, so M_r is its column block [r*n, (r+1)*n).
 #pragma once
 
 #include "common.cuh"
@@ -21,13 +23,16 @@ __global__ void __launch_bounds__(256)
               const float* __restrict__ K2e, int stationary,
               float* __restrict__ small) {
   extern __shared__ float smem[];
-  const int nn = n * n;
+  const int nn = n * n, r = blockIdx.x, ldp = gridDim.x * n;
+  const int pstride = n * ldp;  // floats in one CTA's partial row
   float* sM = smem;       // [n][n]
   float* sT = smem + nn;  // [n][n]
+  small += (i64)r * nn;
   for (int e = threadIdx.x; e < nn; e += blockDim.x) {
+    const int at = (e / n) * ldp + r * n + e % n;  // M_r[e] in a row
     float s = 0.f;
 #pragma unroll 8
-    for (int g = 0; g < G; ++g) s += part[(i64)g * nn + e];
+    for (int g = 0; g < G; ++g) s += part[(i64)g * pstride + at];
     sM[e] = s;
   }
   __syncthreads();

@@ -8,12 +8,16 @@
 //
 // Per tile of kTileD columns, one warp per matrix row loads the tile into
 // shared memory (lane = column, so the global reads coalesce; a warp has
-// up to kLoadRows rows in flight) and, where asked, folds the row's
-// lam-weighted norms with a fixed shuffle tree.
+// up to kLoadRows rows in flight) and, where the mode asks, folds the
+// row's lam-weighted norms with a fixed shuffle tree.
 // Then every thread accumulates kRowsPerThread entries of the skinny
 // products in registers. When there are fewer products than threads the
 // CTA splits the tile's columns between thread groups and adds the groups
 // in order at the end of its slice.
+//
+// Three output modes share the body: P alone (skinny_gram and the Gram
+// MVMs), P with both norm strips (fused_gram_norms), and the full factor
+// bundle with the V stream (fused_factor_build).
 #pragma once
 
 #include "common.cuh"
@@ -41,52 +45,70 @@ inline SplitPlan split_plan(i64 D) {
   return {static_cast<int>((D + chunk - 1) / chunk), chunk};
 }
 
+// What a first stage writes (see split_partials).
+enum SplitMode { kSplitP = 0, kSplitNorms = 1, kSplitFull = 2 };
+
 // Shared-memory rows are padded to an odd stride, so a warp storing one
 // column of 32 rows and a warp reading 32 rows of one column both hit 32
 // different banks.
 __host__ __device__ inline int odd_stride(int rows) { return rows | 1; }
 
-__host__ __device__ inline i64 split_smem_bytes(int na, int nb) {
-  const i64 floats = (i64)kTileD * (odd_stride(na) + 2 * odd_stride(nb) + 2) +
-                     na + 2 * nb + 2 * kRowsPerThread * kSplitThreads;
+// The V tile is staged only in the full mode.
+__host__ __device__ inline i64 split_smem_bytes(int na, int nb, int mode) {
+  const int vrows = mode == kSplitFull ? odd_stride(nb) : 0;
+  const i64 floats =
+      (i64)kTileD * (odd_stride(na) + odd_stride(nb) + vrows + 2) + na +
+      2 * nb + 2 * kRowsPerThread * kSplitThreads;
   return floats * (i64)sizeof(float);
 }
 
-// Width of one CTA's partial row.
-__host__ __device__ inline int split_stride(int na, int nb, bool full) {
-  return full ? 2 * na * nb + na + 2 * nb : na * nb;
+// Where the norm strips start in a partial row, and how many there are.
+__host__ __device__ inline int split_norms_at(int na, int nb, int mode) {
+  return (mode == kSplitFull ? 2 : 1) * na * nb;
+}
+__host__ __device__ inline int split_norms_len(int na, int nb, int mode) {
+  return mode == kSplitFull ? na + 2 * nb : mode == kSplitNorms ? na + nb : 0;
 }
 
-// Each stream may be f32 or bf16 storage (TA, TB, TV).
-// Partials of one slice of D, written to part[blockIdx.x * stride + ...]:
+// Width of one CTA's partial row.
+__host__ __device__ inline int split_stride(int na, int nb, int mode) {
+  return split_norms_at(na, nb, mode) + split_norms_len(na, nb, mode);
+}
+
+// Each stream may be f32 or bf16 storage (TA, TB, TV; V is read only in
+// the full mode). Partials of one slice of D, written to
+// part[blockIdx.x * stride + ...]:
 //   [0, na*nb)             P[a*nb + b] = sum_d A[a] lam B[b]
-// and, when FULL,
+// then, in kSplitNorms mode,
+//   na, nb                 na[a] = sum A lam A, nb[b] = sum B lam B
+// or, in kSplitFull mode,
 //   [na*nb, 2*na*nb)       C[b*na + a] = sum_d V[b] vs A[a]
-//   then na, nb, nb        na[a] = sum A lam A, nb[b] = sum B lam B,
-//                          tv[b] = sum B lam V
-template <typename TA, typename TB, typename TV, bool FULL>
+//   then na, nb, tv        tv[b] = sum B lam V
+template <typename TA, typename TB, typename TV, int MODE>
 __global__ void __launch_bounds__(kSplitThreads)
     split_partials(const TA* __restrict__ A, const TB* __restrict__ B,
                    const TV* __restrict__ V, const float* __restrict__ lam,
                    i64 lam_stride, const float* __restrict__ vs, i64 vs_stride,
                    int na, int nb, i64 D, i64 chunk, float* __restrict__ part) {
+  constexpr bool FULL = MODE == kSplitFull;
+  constexpr bool NORMS = MODE != kSplitP;
   extern __shared__ float smem[];
   const int lda = odd_stride(na), ldb = odd_stride(nb);
   float* sA = smem;               // [kTileD][lda]
   float* sB = sA + kTileD * lda;  // [kTileD][ldb]
-  float* sV = sB + kTileD * ldb;  // [kTileD][ldb]
-  float* sL = sV + kTileD * ldb;  // [kTileD] lam
+  float* sV = sB + kTileD * ldb;  // [kTileD][ldb], full mode only
+  float* sL = sV + (FULL ? kTileD * ldb : 0);  // [kTileD] lam
   float* sS = sL + kTileD;        // [kTileD] vs
   float* sNa = sS + kTileD;       // [na]
   float* sNb = sNa + na;          // [nb]
-  float* sTv = sNb + nb;          // [nb]
+  float* sTv = sNb + nb;          // [nb], full mode only
   float* sRed = sTv + nb;         // [2 * kRowsPerThread][kSplitThreads]
 
   const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
   const int nwarps = kSplitThreads / kWarp;
   const i64 d_begin = (i64)blockIdx.x * chunk;
   const i64 d_end = d_begin + chunk < D ? d_begin + chunk : D;
-  float* out = part + (i64)blockIdx.x * split_stride(na, nb, FULL);
+  float* out = part + (i64)blockIdx.x * split_stride(na, nb, MODE);
 
   // A thread's slot is one column b of B (and V) and the rows
   // a0, a0 + sa, ... of A.
@@ -103,7 +125,7 @@ __global__ void __launch_bounds__(kSplitThreads)
     const bool active = slot < nslots && grp < groups;
     const int b = active ? slot / sa : 0;
     const int a0 = active ? slot % sa : 0;
-    const bool norms = FULL && pass == 0;
+    const bool norms = NORMS && pass == 0;
     float accP[kRowsPerThread], accC[kRowsPerThread];
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) accP[i] = accC[i] = 0.f;
@@ -148,15 +170,13 @@ __global__ void __launch_bounds__(kSplitThreads)
           } else {
             const int r = j - na;
             sB[lane * ldb + r] = x;
-            if (FULL) {
-              sV[lane * ldb + r] = vs_[u];
-              if (norms) {
-                const float s1 = warp_sum(x * l * x);
-                const float s2 = warp_sum(x * l * vs_[u]);
-                if (lane == 0) {
-                  sNb[r] += s1;
-                  sTv[r] += s2;
-                }
+            if (FULL) sV[lane * ldb + r] = vs_[u];
+            if (norms) {
+              const float s1 = warp_sum(x * l * x);
+              const float s2 = FULL ? warp_sum(x * l * vs_[u]) : 0.f;
+              if (lane == 0) {
+                sNb[r] += s1;
+                if (FULL) sTv[r] += s2;
               }
             }
           }
@@ -205,10 +225,11 @@ __global__ void __launch_bounds__(kSplitThreads)
     }
   }
 
-  if (FULL) {
+  if (NORMS) {
     __syncthreads();
-    for (int i = tid; i < na + 2 * nb; i += kSplitThreads)
-      out[2 * na * nb + i] = sNa[i];
+    const int at = split_norms_at(na, nb, MODE);
+    for (int i = tid; i < split_norms_len(na, nb, MODE); i += kSplitThreads)
+      out[at + i] = sNa[i];
   }
 }
 
@@ -223,6 +244,30 @@ __global__ void __launch_bounds__(256)
 #pragma unroll 8
   for (int g = 0; g < G; ++g) s += part[(i64)g * stride + e];
   out[e] = s;
+}
+
+// Both stages in stream order: part holds split_plan(D).ctas rows of
+// split_stride(na, nb, MODE) floats of scratch, out one reduced row.
+// Returns RT_BAD_SHAPE when the first stage's staging does not fit the
+// shared-memory budget, else the launches' CUDA error code.
+template <typename TA, typename TB, typename TV, int MODE>
+int split_reduce(const TA* A, const TB* B, const TV* V, const float* lam,
+                 i64 lam_stride, const float* vs, i64 vs_stride, int na,
+                 int nb, i64 D, float* part, float* out,
+                 cudaStream_t stream) {
+  const i64 smem = split_smem_bytes(na, nb, MODE);
+  if (smem > kSmemBytes) return RT_BAD_SHAPE;
+  const SplitPlan plan = split_plan(D);
+  split_partials<TA, TB, TV, MODE>
+      <<<plan.ctas, kSplitThreads, smem, stream>>>(A, B, V, lam, lam_stride,
+                                                   vs, vs_stride, na, nb, D,
+                                                   plan.chunk, part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int stride = split_stride(na, nb, MODE);
+  reduce_partials<<<(stride + 255) / 256, 256, 0, stream>>>(part, plan.ctas,
+                                                            stride, out);
+  return cudaGetLastError();
 }
 
 }  // namespace rt

@@ -8,10 +8,12 @@ on PyTorch's current stream, or raise. There is no third route.
 
 ``launches`` counts the wrapper calls that launched a kernel (one call of
 ``fused_gram_mvm`` is three CUDA launches in stream order and counts once).
+``fused_gram_mvm`` with a stacked (R, N, D) V is the multi-RHS form, which
+counts as ``fused_gram_mvm_multi``.
 
-lam and v_scale may each be a Python number, a 0-d / one-element tensor or
-a (D,) tensor. The kernels mask the ragged end of D themselves, so no
-input is padded or copied.
+lam, v_scale and scale may each be a Python number, a 0-d / one-element
+tensor or a (D,) tensor. The kernels mask the ragged end of D themselves,
+so no input is padded or copied.
 """
 from __future__ import annotations
 
@@ -21,7 +23,9 @@ from . import _build, ref
 
 Tensor = torch.Tensor
 
-launches = {"fused_factor_build": 0, "gram_update": 0, "fused_gram_mvm": 0}
+launches = {"fused_factor_build": 0, "gram_update": 0, "fused_gram_mvm": 0,
+            "skinny_gram": 0, "fused_gram_norms": 0, "small_matmul": 0,
+            "fused_gram_mvm_multi": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -188,12 +192,23 @@ def fused_gram_mvm(K1e: Tensor, K2e: Tensor, Xt: Tensor, V: Tensor, lam, *,
 
     K1e, K2e: (N, N); Xt, V: (N, D). ``small`` is K2e * M for dot kernels
     and diag(rowsum(Mt)) - Mt, Mt = K2e * (M - diag(M)), for stationary
-    ones, with M = (Xt*lam) @ V^T.
+    ones, with M = (Xt*lam) @ V^T. A stacked V (R, N, D) gives W
+    (R, N, D), one product per right-hand side, with Xt streamed once for
+    all of them; the card refuses (ValueError) an R * N^2 past the
+    kernel's shared-memory budget, as the TPU wrapper refuses one past
+    VMEM. Both forms launch one library; a stacked V counts as
+    ``fused_gram_mvm_multi``.
     """
-    name = "fused_gram_mvm"
-    _check_2d(name, K1e=K1e, K2e=K2e, Xt=Xt, V=V)
-    n, d = V.shape
-    if Xt.shape != V.shape or K1e.shape != (n, n) or K2e.shape != (n, n):
+    stacked = isinstance(V, Tensor) and V.ndim == 3
+    name = "fused_gram_mvm_multi" if stacked else "fused_gram_mvm"
+    _check_2d(name, K1e=K1e, K2e=K2e, Xt=Xt)
+    if not stacked:
+        _check_2d(name, V=V)
+    elif V.numel() == 0:
+        raise ValueError(f"{name}: V must be a non-empty (N, D) or "
+                         f"(R, N, D) tensor, got {tuple(V.shape)}")
+    r, n, d = V.shape if stacked else (1, *V.shape)
+    if Xt.shape != (n, d) or K1e.shape != (n, n) or K2e.shape != (n, n):
         raise ValueError(f"{name}: shapes K1e {tuple(K1e.shape)}, K2e "
                          f"{tuple(K2e.shape)}, Xt {tuple(Xt.shape)}, V "
                          f"{tuple(V.shape)} do not fit")
@@ -201,20 +216,103 @@ def fused_gram_mvm(K1e: Tensor, K2e: Tensor, Xt: Tensor, V: Tensor, lam, *,
     if _on_cpu(name, K1e, K2e, Xt, V):
         return ref.fused_gram_mvm_ref(K1e, K2e, Xt, V, lam,
                                       stationary=stationary, noise=noise)
+    lib = "fused_gram_mvm"
     codes = _stream_code(name, Xt), _stream_code(name, V)
     _f32_small(name, K1e, K2e)
     dev = V.device
     lam_t, lam_s = _lane(name, lam, d, dev)
+    G, _ = _build.split_plan(lib, d)
+    part = torch.empty((G, r * n * n), dtype=torch.float32, device=dev)
+    small = torch.empty((r, n, n), dtype=torch.float32, device=dev)
+    W = torch.empty(V.shape, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.launcher(lib)(
+            *codes, K1e.data_ptr(), K2e.data_ptr(), Xt.data_ptr(), V.data_ptr(),
+            lam_t.data_ptr(), lam_s, float(noise), int(bool(stationary)), r,
+            n, d, part.data_ptr(), small.data_ptr(), W.data_ptr(),
+            _stream_ptr(dev))
+    _raise_on(lib, err)
+    launches[name] += 1
+    return W
+
+
+def _gram_pair(name: str, A: Tensor, B: Tensor):
+    """Checks shared by the two (A, B) split-D kernels; returns (Na, Nb, D)."""
+    _check_2d(name, A=A, B=B)
+    if A.shape[1] != B.shape[1]:
+        raise ValueError(f"{name}: shapes A {tuple(A.shape)}, B "
+                         f"{tuple(B.shape)} do not fit")
+    _contiguous(name, A, B)
+    return A.shape[0], B.shape[0], A.shape[1]
+
+
+def _launch_gram_pair(name: str, A: Tensor, B: Tensor, lam, width: int
+                      ) -> Tensor:
+    """Launch a split-D (A, B) kernel whose reduced row is ``width``
+    floats; returns that row."""
+    na, d = A.shape
+    nb = B.shape[0]
+    codes = _stream_code(name, A), _stream_code(name, B)
+    dev = A.device
+    lam_t, lam_s = _lane(name, lam, d, dev)
     G, _ = _build.split_plan(name, d)
-    part = torch.empty((G, n * n), dtype=torch.float32, device=dev)
-    small = torch.empty((n, n), dtype=torch.float32, device=dev)
-    W = torch.empty((n, d), dtype=torch.float32, device=dev)
+    part = torch.empty((G, width), dtype=torch.float32, device=dev)
+    out = torch.empty((width,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.launcher(name)(
-            *codes, K1e.data_ptr(), K2e.data_ptr(), Xt.data_ptr(), V.data_ptr(),
-            lam_t.data_ptr(), lam_s, float(noise), int(bool(stationary)), n,
-            d, part.data_ptr(), small.data_ptr(), W.data_ptr(),
-            _stream_ptr(dev))
+            *codes, A.data_ptr(), B.data_ptr(), lam_t.data_ptr(), lam_s, na,
+            nb, d, part.data_ptr(), out.data_ptr(), _stream_ptr(dev))
+    _raise_on(name, err)
+    launches[name] += 1
+    return out
+
+
+def skinny_gram(A: Tensor, B: Tensor, lam) -> Tensor:
+    """P = (A*lam) @ B^T (Na, Nb); A: (Na, D), B: (Nb, D) streamed once."""
+    name = "skinny_gram"
+    na, nb, _ = _gram_pair(name, A, B)
+    if _on_cpu(name, A, B):
+        return ref.skinny_gram_ref(A, B, lam)
+    return _launch_gram_pair(name, A, B, lam, na * nb).view(na, nb)
+
+
+def fused_gram_norms(A: Tensor, B: Tensor, lam):
+    """(P, na, nb) in one read of A and B: P = (A*lam) @ B^T (Na, Nb) and
+    the lam-weighted row norms na (Na,) and nb (Nb,)."""
+    name = "fused_gram_norms"
+    na, nb, _ = _gram_pair(name, A, B)
+    if _on_cpu(name, A, B):
+        return ref.fused_gram_norms_ref(A, B, lam)
+    k = na * nb
+    out = _launch_gram_pair(name, A, B, lam, k + na + nb)
+    return out[:k].view(na, nb), out[k:k + na], out[k + na:]
+
+
+def small_matmul(K: Tensor, V: Tensor, scale=1.0) -> Tensor:
+    """W = (K @ V) * scale; K: (Nq, N) f32 on the card, V: (N, D) streamed.
+
+    The Kronecker-preconditioner application (scale = 1/lam): one read of
+    V and one write of W.
+    """
+    name = "small_matmul"
+    _check_2d(name, K=K, V=V)
+    n, d = V.shape
+    nq = K.shape[0]
+    if K.shape != (nq, n):
+        raise ValueError(f"{name}: shapes K {tuple(K.shape)}, V "
+                         f"{tuple(V.shape)} do not fit")
+    _contiguous(name, K, V)
+    if _on_cpu(name, K, V):
+        return ref.small_matmul_ref(K, V, scale)
+    code = _stream_code(name, V)
+    _f32_small(name, K)
+    dev = V.device
+    s_t, s_s = _lane(name, scale, d, dev)
+    W = torch.empty((nq, d), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.launcher(name)(
+            code, K.data_ptr(), V.data_ptr(), s_t.data_ptr(), s_s, nq, n, d,
+            W.data_ptr(), _stream_ptr(dev))
     _raise_on(name, err)
     launches[name] += 1
     return W

@@ -17,7 +17,9 @@ import torch
 
 Tensor = torch.Tensor
 
-cuda_calls = {"fused_factor_build": 0, "gram_update": 0, "fused_gram_mvm": 0}
+cuda_calls = {"fused_factor_build": 0, "gram_update": 0, "fused_gram_mvm": 0,
+              "skinny_gram": 0, "fused_gram_norms": 0, "small_matmul": 0,
+              "fused_gram_mvm_multi": 0}
 
 
 def _note(name: str, t: Tensor) -> None:
@@ -72,6 +74,31 @@ def gram_update_ref(K1: Tensor, M: Tensor, V: Tensor, X: Tensor, lam,
     return W
 
 
+def skinny_gram_ref(A: Tensor, B: Tensor, lam) -> Tensor:
+    """P = (A*lam) @ B^T (Na, Nb)."""
+    _note("skinny_gram", A)
+    A, B, lam = _common(A, B, lam)
+    return (A * lam) @ B.T
+
+
+def fused_gram_norms_ref(A: Tensor, B: Tensor, lam):
+    """(P, na, nb): P = (A*lam) @ B^T and the lam-weighted row norms
+    na (Na,) / nb (Nb,)."""
+    _note("fused_gram_norms", A)
+    A, B, lam = _common(A, B, lam)
+    P = (A * lam) @ B.T
+    na = torch.sum((A * lam) * A, dim=-1)
+    nb = torch.sum((B * lam) * B, dim=-1)
+    return P, na, nb
+
+
+def small_matmul_ref(K: Tensor, V: Tensor, scale=1.0) -> Tensor:
+    """W = (K @ V) * scale."""
+    _note("small_matmul", V)
+    K, V, scale = _common(K, V, scale)
+    return (K @ V) * scale
+
+
 def small_op(K2e: Tensor, M: Tensor, *, stationary: bool) -> Tensor:
     """The (N, N) Hadamard/L-operator algebra of Alg. 2.
 
@@ -88,8 +115,9 @@ def small_op(K2e: Tensor, M: Tensor, *, stationary: bool) -> Tensor:
 
 def gram_mvm_oracle(K1e: Tensor, K2e: Tensor, Xt: Tensor, V: Tensor, lam,
                     *, stationary: bool, noise: float = 0.0) -> Tensor:
-    """Full Alg.-2 Gram MVM in the inputs' own dtype."""
-    m = (Xt * lam) @ V.T
+    """Full Alg.-2 Gram MVM in the inputs' own dtype; V (N, D) or stacked
+    (R, N, D), one product per right-hand side."""
+    m = (Xt * lam) @ V.transpose(-1, -2)
     small = small_op(K2e, m, stationary=stationary)
     w = (K1e @ V + small @ Xt) * lam
     if noise:
@@ -99,8 +127,9 @@ def gram_mvm_oracle(K1e: Tensor, K2e: Tensor, Xt: Tensor, V: Tensor, lam,
 
 def fused_gram_mvm_ref(K1e: Tensor, K2e: Tensor, Xt: Tensor, V: Tensor, lam,
                        *, stationary: bool, noise: float = 0.0) -> Tensor:
-    """Alg.-2 Gram MVM in the accumulation dtype (bf16 storage -> f32)."""
-    _note("fused_gram_mvm", V)
+    """Alg.-2 Gram MVM in the accumulation dtype (bf16 storage -> f32);
+    V (N, D) or stacked (R, N, D)."""
+    _note("fused_gram_mvm_multi" if V.ndim == 3 else "fused_gram_mvm", V)
     K1e, K2e, Xt, V, lam = _common(K1e, K2e, Xt, V, lam)
     return gram_mvm_oracle(K1e, K2e, Xt, V, lam, stationary=stationary,
                            noise=noise)

@@ -1,5 +1,6 @@
 """The batched GP posterior-query serving step (counterpart of
-``build_gp_serve_step`` in ``repro/train/serve.py``, mean path).
+``build_gp_serve_step`` in ``repro/train/serve.py``: means and Hessian
+probes).
 
 ``GPServeBundle.query(Xq)`` answers a request in fixed-size microbatches
 against the CURRENT state revision: each microbatch is one
@@ -10,13 +11,13 @@ a ragged request is simply shorter: the kernels take any number of rows.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.configs.paper_gp import GP_SERVE
 from repro_torch.core import backend
-from repro_torch.core.query import PosteriorBatch, make_query_fn
+from repro_torch.core.query import PosteriorBatch, cat_batches, make_query_fn
 
 
 @dataclasses.dataclass
@@ -25,24 +26,26 @@ class GPServeBundle:
 
     ``query(Xq)`` runs ``step`` on each ``microbatch``-row slice of the
     request against the state's current factors (read per call, so
-    extend() between requests is seen).
+    extend() between requests is seen), with ``probe`` when the step was
+    built for Hessian probes.
     """
 
     state: Any                       # GPGState
     microbatch: int
-    step: Callable                   # (factors, Z, chunk) -> PosteriorBatch
+    step: Callable                   # (factors, Z, chunk[, probe]) -> batch
+    probe: Optional[torch.Tensor] = None
 
     def query(self, Xq: torch.Tensor) -> PosteriorBatch:
         Xq = torch.atleast_2d(Xq)
         b = self.microbatch
         f, Z = self.state.padded_factors, self.state.data.Z
         Xq = Xq.to(f.Xt.dtype)
-        chunks = [self.step(f, Z, Xq[i:i + b])
+        extra = () if self.probe is None else (self.probe,)
+        chunks = [self.step(f, Z, Xq[i:i + b], *extra)
                   for i in range(0, Xq.shape[0], b)]
         if len(chunks) == 1:  # no copy for a one-microbatch request
             return chunks[0]
-        return PosteriorBatch(value=torch.cat([c.value for c in chunks]),
-                              grad=torch.cat([c.grad for c in chunks]))
+        return cat_batches(chunks, self.probe is not None)
 
 
 def build_gp_serve_step(state, *, microbatch: int | None = None, probe=None,
@@ -50,13 +53,14 @@ def build_gp_serve_step(state, *, microbatch: int | None = None, probe=None,
                         return_grad_std: bool = False,
                         precision: str | None = None,
                         config=None, device=None) -> GPServeBundle:
-    """A batched posterior-mean query step for a ``GPGState``.
+    """A batched posterior query step for a ``GPGState``: means, and the
+    posterior mean Hessian applied to ``probe`` (D,) when one is given.
 
     ``config`` (a ``repro_torch.configs.GPServeConfig``) supplies the
     ``microbatch`` default and, as in the JAX package, its ``tol`` /
     ``maxiter`` solve knobs are applied to the state: they shape the
     extend-time CG re-solves this bundle's queries are served from.
-    Hessian probes, stds and bf16 streams come with later slices.
+    Stds and bf16 streams come with later slices.
 
     ``device`` defaults to ``"cuda"`` (raising without a CUDA device) and
     must be the state's device.
@@ -75,4 +79,8 @@ def build_gp_serve_step(state, *, microbatch: int | None = None, probe=None,
         state.set_precision(precision)
     fn = make_query_fn(state.spec, with_probe=probe is not None,
                        with_std=return_std, with_grad_std=return_grad_std)
-    return GPServeBundle(state=state, microbatch=int(microbatch), step=fn)
+    if probe is not None:
+        probe = torch.as_tensor(probe, dtype=state.data.X.dtype,
+                                device=state.device)
+    return GPServeBundle(state=state, microbatch=int(microbatch), step=fn,
+                         probe=probe)

@@ -49,12 +49,16 @@ def test_entry_points_without_device_do_not_fall_back_to_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         GPGState("rbf", d=8)
     with pytest.raises(RuntimeError, match="CUDA"):
+        GPGState.from_data("rbf", torch.zeros(2, 8), torch.zeros(2, 8))
+    with pytest.raises(RuntimeError, match="CUDA"):
         gpg_init(get_kernel("rbf"), 8, 4)
     st = GPGState("rbf", d=8, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         build_gp_serve_step(st)
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.data_from_numpy({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.factors_from_numpy({})
 
 
 def test_chip_smoke_alone_fails_without_printing_a_result(tmp_path):

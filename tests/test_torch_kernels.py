@@ -1,8 +1,9 @@
-"""The port's three kernel modules against the JAX package, and on the card.
+"""The port's seven kernel wrappers against the JAX package.
 
 Each kernel of the port (``repro_torch.kernels.ops``: fused_factor_build,
-gram_update, fused_gram_mvm) is held against its JAX counterpart on the
-same numpy inputs, two ways:
+gram_update, fused_gram_mvm and its stacked-RHS form, skinny_gram,
+fused_gram_norms, small_matmul) is held against its JAX counterpart on
+the same numpy inputs, two ways:
 
   * the JAX jnp path (``repro.core.backend`` under ``use_backend("jnp")``,
     x64) against the port's plain version at float64: <= 1e-12 relative;
@@ -202,6 +203,117 @@ def test_small_op_matches_jax(stationary):
 
 
 # ---------------------------------------------------------------------------
+# skinny_gram and fused_gram_norms
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("na,nb", [(8, 4), (1, 7), (3, 3)])
+@pytest.mark.parametrize("lam_kind", ["scalar", "vector"])
+def test_skinny_gram_and_gram_norms_match_jnp_x64(na, nb, lam_kind):
+    """(1, 7) is infer_optimum's single zero-row query."""
+    A, B = _arr(1, na, D), _arr(2, nb, D)
+    lam = _lam(lam_kind)
+    with jbackend.use_backend("jnp"):
+        want_p = jbackend.scaled_gram(_jax(A), _jax(B), _jax(lam))
+        want_n = jbackend.gram_norms(_jax(A), _jax(B), _jax(lam))
+    got_p = ops.skinny_gram(_torch(A), _torch(B), _torch(lam))
+    assert got_p.dtype == torch.float64 and tuple(got_p.shape) == (na, nb)
+    assert _rel(got_p.numpy(), want_p) <= X64_TOL
+    got_n = ops.fused_gram_norms(_torch(A), _torch(B), _torch(lam))
+    for g, w in zip(got_n, want_n):
+        assert tuple(g.shape) == w.shape
+        assert _rel(g.numpy(), w) <= X64_TOL
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("lam_kind", ["scalar", "vector"])
+def test_skinny_gram_and_gram_norms_match_pallas_interpret(bf16, lam_kind):
+    (Aj, At), (Bj, Bt) = (_stream_pair(_arr(s, n, D), bf16)
+                          for s, n in ((1, 7), (2, 5)))
+    lam = _lam(lam_kind)
+    want = jops.skinny_gram(Aj, Bj, _jax(lam, jnp.float32), interpret=True)
+    got = ops.skinny_gram(At, Bt, _torch(lam, torch.float32))
+    assert got.dtype == torch.float32
+    assert _rel(got.numpy(), want) <= F32_TOL
+    want = jops.fused_gram_norms(Aj, Bj, _jax(lam, jnp.float32),
+                                 interpret=True)
+    got = ops.fused_gram_norms(At, Bt, _torch(lam, torch.float32))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert _rel(g.numpy(), w) <= F32_TOL
+
+
+# ---------------------------------------------------------------------------
+# small_matmul (the Kronecker preconditioner) and the stacked Gram MVM
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lam_kind", ["scalar", "vector"])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_kron_precond_matches_jnp_x64(lam_kind, stacked):
+    """The 2-D route is the small_matmul kernel's plain version; the
+    stacked route is a plain product in both packages."""
+    from repro_torch.core import backend as tbackend
+
+    K = _arr(1, 6, 6)
+    V = _arr(2, 3, 6, D) if stacked else _arr(2, 6, D)
+    lam = _lam(lam_kind)
+    with jbackend.use_backend("jnp"):
+        want = jbackend.kron_precond(_jax(K), _jax(V), _jax(lam))
+    got = tbackend.kron_precond(_torch(K), _torch(V), _torch(lam))
+    assert got.dtype == torch.float64 and tuple(got.shape) == V.shape
+    assert _rel(got.numpy(), want) <= X64_TOL
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_small_matmul_matches_pallas_interpret(bf16):
+    K = _arr(1, 7, 5).astype(np.float32)
+    Vj, Vt = _stream_pair(_arr(2, 5, D), bf16)
+    scale = _lam("vector")
+    want = jops.small_matmul(jnp.asarray(K), Vj, _jax(scale, jnp.float32),
+                             interpret=True)
+    got = ops.small_matmul(torch.tensor(K), Vt, _torch(scale, torch.float32))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (7, D)
+    assert _rel(got.numpy(), want) <= F32_TOL
+
+
+@pytest.mark.parametrize("stationary", [False, True])
+@pytest.mark.parametrize("lam_kind", ["scalar", "vector"])
+def test_fused_gram_mvm_multi_matches_jnp_x64(stationary, lam_kind):
+    n, r = 6, 3
+    K1e, K2e = _arr(1, n, n), _arr(2, n, n)
+    Xt, V = _arr(3, n, D), _arr(4, r, n, D)
+    lam = _lam(lam_kind)
+    noise = 0.01 if lam_kind == "scalar" else 0.0
+    with jbackend.use_backend("jnp"):
+        want = jbackend.fused_gram_mvm(_jax(K1e), _jax(K2e), _jax(Xt),
+                                       _jax(V), _jax(lam),
+                                       stationary=stationary, noise=noise)
+    ops.reset_launches()
+    got = ops.fused_gram_mvm(_torch(K1e), _torch(K2e), _torch(Xt),
+                             _torch(V), _torch(lam), stationary=stationary,
+                             noise=noise)
+    assert got.dtype == torch.float64 and tuple(got.shape) == (r, n, D)
+    assert _rel(got.numpy(), want) <= X64_TOL
+    assert all(v == 0 for v in ops.launches.values())
+
+
+@pytest.mark.parametrize("stationary", [False, True])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_fused_gram_mvm_multi_matches_pallas_interpret(stationary, bf16):
+    n, r = 5, 3
+    K1e = _arr(1, n, n).astype(np.float32)
+    K2e = _arr(2, n, n).astype(np.float32)
+    Xj, Xt = _stream_pair(_arr(3, n, D), bf16)
+    Vj, Vt = _stream_pair(_arr(4, r, n, D), bf16)
+    want = jops.fused_gram_mvm(jnp.asarray(K1e), jnp.asarray(K2e), Xj, Vj,
+                               0.37, stationary=stationary, noise=1e-3,
+                               interpret=True)
+    got = ops.fused_gram_mvm(torch.tensor(K1e), torch.tensor(K2e), Xt, Vt,
+                             0.37, stationary=stationary, noise=1e-3)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (r, n, D)
+    assert _rel(got.numpy(), want) <= F32_TOL
+
+
+# ---------------------------------------------------------------------------
 # Wrapper contracts (CPU side)
 # ---------------------------------------------------------------------------
 
@@ -227,6 +339,16 @@ def test_wrappers_raise_on_bad_shapes_and_devices():
     meta = torch.zeros(3, D, device="meta")
     with pytest.raises(ValueError):
         ops.fused_factor_build(meta, meta, None, 1.0)
+    with pytest.raises(ValueError):
+        ops.skinny_gram(A, torch.zeros(2, D + 1), 1.0)
+    with pytest.raises(ValueError):
+        ops.fused_gram_norms(A, torch.zeros(D, 2).T, 1.0)  # not contiguous
+    with pytest.raises(ValueError):
+        ops.small_matmul(torch.zeros(4, 3), B, 1.0)  # K (4, 3), V (2, D)
+    with pytest.raises(ValueError):  # stacked V with another row count
+        ops.fused_gram_mvm(torch.zeros(3, 3), torch.zeros(3, 3),
+                           torch.zeros(3, D), torch.zeros(2, 4, D), 1.0,
+                           stationary=False)
 
 
 def test_cpu_route_counts_no_launch():
@@ -239,5 +361,8 @@ def test_cpu_route_counts_no_launch():
     ops.fused_gram_mvm(torch.eye(3, dtype=torch.float64),
                        torch.eye(3, dtype=torch.float64), A, A, 0.5,
                        stationary=False)
+    ops.skinny_gram(A, A, 0.5)
+    ops.fused_gram_norms(A, A, 0.5)
+    ops.small_matmul(torch.eye(3, dtype=torch.float64), A, 2.0)
     assert all(v == 0 for v in ops.launches.values())
     assert ref.cuda_calls == calls

@@ -1,4 +1,5 @@
-"""On the card: each CUDA kernel of the port against its plain version.
+"""On the card: each of the seven CUDA kernels of the port against its plain
+version.
 
 Every test here is marked ``gpu`` and skips without an sm_90 card. The
 module imports neither JAX nor the JAX package, so the card's machine runs
@@ -101,6 +102,72 @@ def test_fused_gram_mvm_kernel_on_card(sm90, stationary, per_lane):
     want = ref.fused_gram_mvm_ref(K1e, K2e, Xt, V, lam,
                                   stationary=stationary, noise=1e-6)
     assert _rel(got.cpu().numpy(), want.cpu().numpy()) <= F32_TOL
+
+
+@pytest.mark.gpu
+@LANES
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("na,nb", [(64, 16), (16, 16), (1, 16)])
+def test_skinny_gram_and_gram_norms_kernels_on_card(sm90, dtype, per_lane,
+                                                    na, nb):
+    """Includes the single zero-row query of infer_optimum (Na = 1) and
+    the same tensor as A and B (build_factors(X, X))."""
+    d = 100_003
+    B = _card(2, nb, d, dtype=dtype)
+    A = B if na == nb else _card(1, na, d, dtype=dtype)
+    lam = _factor(per_lane, 5, d)
+    got = ops.skinny_gram(A, B, lam)
+    assert _rel(got.cpu().numpy(),
+                ref.skinny_gram_ref(A, B, lam).cpu().numpy()) <= F32_TOL
+    for g, w in zip(ops.fused_gram_norms(A, B, lam),
+                    ref.fused_gram_norms_ref(A, B, lam)):
+        assert g.shape == w.shape
+        assert _rel(g.cpu().numpy(), w.cpu().numpy()) <= F32_TOL
+
+
+@pytest.mark.gpu
+@LANES
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq", [16, 5])
+def test_small_matmul_kernel_on_card(sm90, dtype, per_lane, nq):
+    d = 100_003
+    K, V = _card(1, nq, 16), _card(3, 16, d, dtype=dtype)
+    scale = _factor(per_lane, 5, d) if per_lane else 3.0
+    got = ops.small_matmul(K, V, scale)
+    want = ref.small_matmul_ref(K, V, scale)
+    assert _rel(got.cpu().numpy(), want.cpu().numpy()) <= F32_TOL
+
+
+@pytest.mark.gpu
+@LANES
+@pytest.mark.parametrize("stationary", [False, True])
+@pytest.mark.parametrize("r", [1, 4])
+def test_fused_gram_mvm_multi_kernel_on_card(sm90, stationary, per_lane, r):
+    """Each slab of the stacked product equals the single-RHS kernel's
+    product of that slab."""
+    d = 100_003
+    K1e, K2e = _card(1, 16, 16), _card(2, 16, 16)
+    Xt, V = _card(3, 16, d), _card(4, r, 16, d)
+    lam = _factor(per_lane, 5, d)
+    got = ops.fused_gram_mvm(K1e, K2e, Xt, V, lam, stationary=stationary,
+                             noise=1e-6)
+    want = ref.fused_gram_mvm_ref(K1e, K2e, Xt, V, lam,
+                                  stationary=stationary, noise=1e-6)
+    assert got.shape == (r, 16, d)
+    assert _rel(got.cpu().numpy(), want.cpu().numpy()) <= F32_TOL
+    one = ops.fused_gram_mvm(K1e, K2e, Xt, V[-1].contiguous(), lam,
+                             stationary=stationary, noise=1e-6)
+    assert _rel(got[-1].cpu().numpy(), one.cpu().numpy()) <= F32_TOL
+
+
+@pytest.mark.gpu
+def test_multi_rhs_past_the_shared_memory_budget_raises(sm90):
+    n, d = 16, 1000
+    K = torch.zeros(n, n, device=sm90)
+    with pytest.raises(ValueError, match="not supported"):
+        ops.fused_gram_mvm(K, K, torch.zeros(n, d, device=sm90),
+                           torch.zeros(64, n, d, device=sm90), 1.0,
+                           stationary=True)
 
 
 @pytest.mark.gpu

@@ -267,18 +267,14 @@ def test_default_maxiter_matches_jax():
     lambda: GPGState("rbf", d=4, precision="bf16", device="cpu"),
     lambda: GPGState("rbf", d=4, policy="compress", device="cpu"),
     lambda: GPGState("rbf", d=4, device="cpu").set_precision("bf16"),
-    lambda: GPGState("rbf", d=4, device="cpu").refactor(),
     lambda: GPGState("rbf", d=4, device="cpu").refit(),
     lambda: GPGState("rbf", d=4, device="cpu").mll(),
-    lambda: GPGState.from_data("rbf", torch.zeros(2, 4), torch.zeros(2, 4)),
-    lambda: GPGState("rbf", d=4, device="cpu").posterior(
-        torch.zeros(1, 4), probe=torch.ones(4)),
     lambda: GPGState("rbf", d=4, device="cpu").posterior(
         torch.zeros(1, 4), return_std=True),
     lambda: build_gp_serve_step(GPGState("rbf", d=4, device="cpu"),
                                 return_std=True, device="cpu"),
-], ids=["bf16", "policy", "set_precision", "refactor", "refit", "mll",
-        "from_data", "probe", "std", "serve_std"])
+], ids=["bf16", "policy", "set_precision", "refit", "mll", "std",
+        "serve_std"])
 def test_later_slices_raise_not_implemented(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call()
