@@ -15,8 +15,11 @@ printed only when every phase passed:
      f32 and bf16 stream storage and both stationary flags, and at the
      ragged D with per-lane (D,) lam and v_scale as well as scalar ones;
      two launches on the same inputs must agree bit for bit (no
-     atomics); kernel, plain-version and bound times, and the time of one
-     PyTorch call computing the same function where there is one;
+     atomics); kernel, plain-version and bound times, the time of one
+     PyTorch call computing the same function where there is one, and
+     the Gram MVMs' three launches (first stage, fold, output stream)
+     timed apart. The A = B case passes one tensor twice, as
+     build_factors(X, X) does: skinny_gram's symmetric mode;
   4. the main path at full width: an rbf ``GPGState`` with D = 4,194,304
      and a window of 16 takes 24 observations of a seeded random walk (8
      evictions), then ``build_gp_serve_step`` answers 4 requests of 64
@@ -43,8 +46,12 @@ printed only when every phase passed:
      solve of each right-hand side). Then torch.profiler shows where the
      time of one Woodbury solve and one CG solve goes.
 
-``--out PATH`` also writes the detailed numbers there as JSON. Imports
-torch and the port, never JAX and nothing of the JAX package.
+``--out PATH`` also writes the detailed numbers there as JSON. ``--src
+DIR`` imports and builds the port from DIR (another tree's ``src``, e.g.
+an unpacked parent commit) instead of this checkout's, so that two trees
+are timed by one script; a tree without ``fused_gram_mvm_phases`` prints
+no per-launch times. Imports torch and the port, never JAX and nothing of
+the JAX package.
 """
 from __future__ import annotations
 
@@ -113,10 +120,18 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# Device cycles of the spin kernel that runs ahead of each timed window
+# (about 10 ms at the H100's clocks), so that the host enqueues the launches
+# while the card is busy and the events bracket device time, not launch gaps
+# (a launch shorter than the wrapper's host time would read as the latter).
+SPIN_CYCLES = 20_000_000
+
+
 def time_ms(torch, fn, reps=10) -> float:
     """Mean device time of fn over reps launches, after one warm-up."""
     fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -151,12 +166,15 @@ def rel_err(got, want):
 
 def kernel_cases(torch, d, bf16, lanes, gen):
     """(kernel, label, kernel call, plain call, bytes, flops, library
-    call or None) at the paths' shapes for one D and one stream storage;
-    ``lanes`` passes lam and v_scale as (D,) vectors instead of scalars.
-    The library call is one PyTorch call computing the same function (at
-    f32 and a scalar factor only), timed as a yardstick."""
+    call or None, phases or None) at the paths' shapes for one D and one
+    stream storage; ``lanes`` passes lam and v_scale as (D,) vectors
+    instead of scalars. The library call is one PyTorch call computing the
+    same function (at f32 and a scalar factor only), timed as a yardstick.
+    ``phases()`` gives a Gram MVM's launches as separate calls, each timed
+    on its own."""
     from repro_torch.kernels import ops, ref
 
+    split = getattr(ops, "fused_gram_mvm_phases", None)
     f32 = torch.float32
     sdt = torch.bfloat16 if bf16 else f32
     es = 2 if bf16 else 4
@@ -187,13 +205,13 @@ def kernel_cases(torch, d, bf16, lanes, gen):
         lambda: ref.fused_factor_build_ref(Xq, Xt, Z, lam, vs),
         (na + nb) * d * es + nb * d * 4 + 2 * lane_bytes
         + 4 * (2 * na * nb + na + 2 * nb),
-        4 * na * nb * d + 4 * na * d + 7 * nb * d, None))
+        4 * na * nb * d + 4 * na * d + 7 * nb * d, None, None))
     out.append((
         "fused_factor_build", "border (16,1)" + tag,
         lambda: ops.fused_factor_build(Xt, x, None, lam),
         lambda: ref.fused_factor_build_ref(Xt, x, None, lam),
         17 * d * es + lane_bytes + 4 * (2 * 16 + 16 + 2),
-        4 * 16 * d + 4 * 16 * d + 7 * d, None))
+        4 * 16 * d + 4 * 16 * d + 7 * d, None, None))
     # the query path passes no v_scale; the per-lane case covers that
     # stride too
     gu_vs = vs if lanes else None
@@ -203,7 +221,7 @@ def kernel_cases(torch, d, bf16, lanes, gen):
         lambda: ref.gram_update_ref(K1, M, Z, Xt, lam, gu_vs),
         16 * d * 4 + 16 * d * es + 64 * d * 4 + (2 if lanes else 1)
         * lane_bytes + 4 * 2 * 64 * 16,
-        4 * 64 * 16 * d + 2 * 64 * d, None))
+        4 * 64 * 16 * d + 2 * 64 * d, None, None))
     for stationary in (True, False):
         out.append((
             "fused_gram_mvm", ("stationary" if stationary else "dot") + tag,
@@ -213,10 +231,12 @@ def kernel_cases(torch, d, bf16, lanes, gen):
                 K1e, K2e, Xt, Z, lam, stationary=s, noise=NOISE),
             16 * d * es + 16 * d * 4 + 16 * d * 4 + lane_bytes
             + 8 * 16 * 16,
-            6 * 16 * 16 * d + 5 * 16 * d, None))
+            6 * 16 * 16 * d + 5 * 16 * d, None,
+            None if split is None else lambda s=stationary: split(
+                K1e, K2e, Xt, Z, lam, stationary=s, noise=NOISE)))
     # B4/B5 at the query shape and with the same tensor as A and B, as
-    # build_factors(X, X) calls them: the bound reads that tensor once,
-    # while the kernels read it twice
+    # build_factors(X, X) calls them: the bound reads that tensor once, as
+    # skinny_gram's symmetric mode does (fused_gram_norms reads it twice)
     for label, A, B in (("query (64,16)", Xq, Xt), ("A=B (16,16)", Xt, Xt)):
         na, nb = A.shape[0], B.shape[0]
         rows_read = na if A is B else na + nb
@@ -226,7 +246,7 @@ def kernel_cases(torch, d, bf16, lanes, gen):
             lambda A=A, B=B: ops.fused_gram_norms(A, B, lam),
             lambda A=A, B=B: ref.fused_gram_norms_ref(A, B, lam),
             rows_read * d * es + lane_bytes + 4 * (na * nb + na + nb),
-            2 * na * nb * d + 3 * (na + nb) * d, None))
+            2 * na * nb * d + 3 * (na + nb) * d, None, None))
         out.append((
             "skinny_gram", label + tag,
             lambda A=A, B=B: ops.skinny_gram(A, B, lam),
@@ -234,7 +254,8 @@ def kernel_cases(torch, d, bf16, lanes, gen):
             rows_read * d * es + lane_bytes + 4 * na * nb,
             2 * na * nb * d + na * d,
             (lambda A=A, B=B, P_out=P_out: torch.addmm(
-                P_out, A, B.T, beta=0, alpha=1.0 / d)) if library else None))
+                P_out, A, B.T, beta=0, alpha=1.0 / d)) if library else None,
+            None))
     W_out = torch.empty(16, d, device="cuda")
     out.append((
         "small_matmul", "(16,16)x(16,D)" + tag,
@@ -243,7 +264,7 @@ def kernel_cases(torch, d, bf16, lanes, gen):
         16 * d * es + 16 * d * 4 + lane_bytes + 4 * 16 * 16,
         2 * 16 * 16 * d + 16 * d,
         (lambda: torch.addmm(W_out, K1e, Xt, beta=0, alpha=1.0 / d))
-        if library else None))
+        if library else None, None))
     for stationary in (True, False):
         out.append((
             "fused_gram_mvm_multi",
@@ -254,7 +275,9 @@ def kernel_cases(torch, d, bf16, lanes, gen):
                 K1e, K2e, Xt, Vm, lam, stationary=s, noise=NOISE),
             16 * d * es + 2 * R_STACK * 16 * d * 4 + lane_bytes
             + 8 * 16 * 16,
-            R_STACK * (6 * 16 * 16 * d + 5 * 16 * d), None))
+            R_STACK * (6 * 16 * 16 * d + 5 * 16 * d), None,
+            None if split is None else lambda s=stationary: split(
+                K1e, K2e, Xt, Vm, lam, stationary=s, noise=NOISE)))
     return out
 
 
@@ -265,8 +288,8 @@ def phase_kernels(torch, detail):
              for lanes in ((False,) if d == D_PATH else (False, True))
              for bf16 in (False, True)]
     for d, bf16, lanes in cases:
-        for name, label, kern, plain, nbytes, flops, lib in kernel_cases(
-                torch, d, bf16, lanes, gen):
+        for name, label, kern, plain, nbytes, flops, lib, phases in \
+                kernel_cases(torch, d, bf16, lanes, gen):
             got = kern()
             again = kern()
             torch.cuda.synchronize()
@@ -289,6 +312,9 @@ def phase_kernels(torch, detail):
                 row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
                 row["library_ms"] = None if lib is None else time_ms(torch,
                                                                      lib)
+                if phases is not None:
+                    row["phase_ms"] = {what: time_ms(torch, fn)
+                                       for what, fn in phases()}
             rows.append(row)
             print(f"  {name:20s} {label:24s} D={d:<8d} "
                   f"{row['streams']:4s} rel {rel:.2e} (tol {KERNEL_TOL:g})"
@@ -296,7 +322,10 @@ def phase_kernels(torch, detail):
                      f" ms, bound {row['bound_ms']:.3f} ms"
                      if "ms" in row else "")
                   + (f", library {row['library_ms']:.3f} ms"
-                     if row.get("library_ms") is not None else ""))
+                     if row.get("library_ms") is not None else "")
+                  + ("".join(f"; {what} {t:.3f} ms" for what, t in
+                             row["phase_ms"].items())
+                     if "phase_ms" in row else ""))
             if not rel <= KERNEL_TOL:
                 raise SystemExit(f"{name} {label} D={d} disagrees with "
                                  f"its plain version: {rel:.3e}")
@@ -772,13 +801,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the detailed numbers here as JSON")
-    out = ap.parse_args(argv).out
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="the directory to import and build repro_torch "
+                         "from (default: this checkout's src)")
+    args = ap.parse_args(argv)
+    out = args.out
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(args.src.resolve()))
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -796,6 +829,7 @@ def main(argv=None) -> int:
         raise SystemExit(f"needs an sm_90 card, found capability {cap}")
 
     print("phase 2: build")
+    print(f"  port from {args.src.resolve()}")
     seconds = _build.build()
     detail["build_s"] = seconds
     print(f"  built {len(_build.SIGNATURES)} kernel libraries in "

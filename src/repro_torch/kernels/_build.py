@@ -36,18 +36,21 @@ SIGNATURES = {
         _I, _I, _P, _P, _P, _P, _P, _LL, _P, _LL, _F, _I, _I, _LL, _P, _P]),
     "fused_gram_mvm": ("fgm_launch", [
         _I, _I, _P, _P, _P, _P, _P, _LL, _F, _I, _I, _I, _LL, _P, _P, _P,
-        _P]),
+        _I, _P]),
     "skinny_gram": ("sg_launch", [
-        _I, _I, _P, _P, _P, _LL, _I, _I, _LL, _P, _P, _P]),
+        _I, _I, _P, _P, _P, _LL, _I, _I, _I, _LL, _P, _P, _P]),
     "fused_gram_norms": ("fgn_launch", [
         _I, _I, _P, _P, _P, _LL, _I, _I, _LL, _P, _P, _P]),
     "small_matmul": ("sm_launch", [
         _I, _P, _P, _P, _LL, _I, _I, _LL, _P, _P]),
 }
-# Sources whose kernels reduce over D in two stages (csrc/splitk.cuh); their
-# libraries export the split plan.
+# Sources whose kernels reduce over D in two stages; their libraries export
+# the split plan of their first stage: csrc/splitk.cuh's fixed plan, or
+# csrc/skinny_stage.cuh's, which depends on the device (STAGE; these also
+# export the stage's ring length).
 SPLIT = ("fused_factor_build", "fused_gram_mvm", "skinny_gram",
          "fused_gram_norms")
+STAGE = ("fused_gram_mvm", "skinny_gram")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -131,17 +134,30 @@ def launcher(name: str):
         if name in SPLIT:
             lib.rt_split_plan.argtypes = [_LL, ctypes.POINTER(_LL)]
             lib.rt_split_plan.restype = ctypes.c_int
+        if name in STAGE:
+            lib.rt_stage_ring.argtypes = [_I] * 6
+            lib.rt_stage_ring.restype = ctypes.c_int
         _LIBS[name] = lib
     return getattr(lib, SIGNATURES[name][0])
 
 
 def split_plan(name: str, d: int) -> tuple[int, int]:
     """(CTAs, columns per CTA) of the first stage of a D-reduction, as the
-    library of ``csrc/<name>.cu`` plans it."""
+    library of ``csrc/<name>.cu`` plans it on the current device."""
     launcher(name)
     chunk = _LL()
     ctas = _LIBS[name].rt_split_plan(d, ctypes.byref(chunk))
     return ctas, chunk.value
+
+
+def stage_ring(name: str, a_code: int, b_code: int, na: int, nb: int, *,
+               sym: bool = False, vec_lam: bool = False) -> int:
+    """Columns that one ring of csrc/skinny_stage.cuh holds (stages x tile
+    width) for these operands on the current device; negative when no ring
+    fits its shared memory (the launcher then refuses the shape)."""
+    launcher(name)
+    return _LIBS[name].rt_stage_ring(a_code, b_code, na, nb, int(sym),
+                                     int(vec_lam))
 
 
 def error_string(name: str, code: int) -> str:

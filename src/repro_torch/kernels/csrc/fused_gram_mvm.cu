@@ -23,19 +23,22 @@
 //
 // Design: the TPU kernel's two-phase grid with a resident M becomes three
 // launches in one stream, so stream order is the phase barrier:
-//   1. split_partials (P only) with A = Xt and B = V seen as one (R*N, D)
-//      matrix: per-CTA partials of the (N, R*N) product [M_0 ... M_{R-1}],
-//      each tile of Xt read once for all R;
-//   2. mvm_small, one CTA per r: the partials of M_r added in CTA order,
-//      then small_r folded in shared memory;
+//   1. skinny_stage.cuh's pipelined first stage with A = Xt and B = V seen
+//      as one (R*N, D) matrix: per-CTA partials of the (N, R*N) product
+//      [M_0 ... M_{R-1}], each tile of Xt read once for all R, with loads
+//      in flight while the FMAs run (the stage the first version lost most
+//      of its time in);
+//   2. mvm_small, one CTA per r: the partials of M_r added in a fixed tree
+//      spread over the CTA, then small_r folded in shared memory;
 //   3. gram_stream with R stacked outputs: each thread stages its column
 //      of Xt once and of every V_r, and writes W_r for all r.
 // The shared-memory budget bounds R * N^2 (all small_r sit in every CTA of
-// the output stream); past it the launcher refuses the shape. A
+// the output stream); past it the launcher refuses the shape. The kernel
+// still reads Xt and V twice, once in phase 1 and once in phase 3; a
 // cooperative single launch with a grid barrier is later work.
 #include "gram_stream.cuh"
 #include "mvm_epilogue.cuh"
-#include "splitk.cuh"
+#include "skinny_stage.cuh"
 
 namespace {
 
@@ -43,24 +46,24 @@ template <typename TX, typename TV>
 int launch(const float* K1e, const float* K2e, const TX* Xt, const TV* V,
            const float* lam, rt::i64 lam_stride, float noise, int stationary,
            int R, int n, rt::i64 D, float* part, float* small, float* W,
-           cudaStream_t stream) {
-  const rt::i64 split_smem = rt::split_smem_bytes(n, R * n, rt::kSplitP);
+           int phases, cudaStream_t stream) {
   const rt::i64 small_smem = rt::mvm_small_smem_bytes(n);
   const int cols = rt::stream_cols(n, n, R, true);
-  if (R < 1 || split_smem > rt::kSmemBytes || small_smem > rt::kSmemBytes ||
-      cols == 0)
+  if (R < 1 || small_smem > rt::kSmemBytes || cols == 0 ||
+      rt::stage_shape<TX, TV>(n, R * n, false, lam_stride != 0).sw == 0)
     return RT_BAD_SHAPE;
-  const rt::SplitPlan plan = rt::split_plan(D);
-  rt::split_partials<TX, TV, TV, rt::kSplitP>
-      <<<plan.ctas, rt::kSplitThreads, split_smem, stream>>>(
-          Xt, V, nullptr, lam, lam_stride, nullptr, 0, n, R * n, D,
-          plan.chunk, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rt::mvm_small<<<R, 256, small_smem, stream>>>(part, plan.ctas, n, K2e,
-                                                stationary, small);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (phases & 1) {
+    const int err = rt::skinny_stage<TX, TV>(Xt, V, lam, lam_stride, n,
+                                             R * n, 0, D, part, stream);
+    if (err != 0) return err;
+  }
+  if (phases & 2) {
+    rt::mvm_small<<<R, rt::kFoldThreads, small_smem, stream>>>(
+        part, rt::stage_plan(D).ctas, n, K2e, stationary, small);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (!(phases & 4)) return 0;
   const rt::i64 blocks = (D + cols - 1) / cols;
   const rt::i64 smem = rt::stream_smem_bytes(n, n, cols, R, true);
   if (R == 1)
@@ -76,17 +79,21 @@ int launch(const float* K1e, const float* K2e, const TX* Xt, const TV* V,
 
 // Xt (n, D) has storage dtype x_dtype, V (R, n, D) has v_dtype. part holds
 // rt_split_plan(D) * R * n * n floats of scratch, small R * n * n floats.
-// Returns RT_BAD_SHAPE when a phase's staging does not fit the
-// shared-memory budget, else the launches' CUDA error code.
+// phases is a mask of the launches to make, in stream order: 1 the first
+// stage, 2 the fold, 4 the output stream (7 for the product; one phase
+// alone times that launch on buffers an earlier call filled). Returns
+// RT_BAD_SHAPE when a phase's staging does not fit the shared-memory
+// budget, else the launches' CUDA error code.
 RT_EXPORT int fgm_launch(int x_dtype, int v_dtype, const float* K1e,
                          const float* K2e, const void* Xt, const void* V,
                          const float* lam, long long lam_stride, float noise,
                          int stationary, int R, int n, long long D,
-                         float* part, float* small, float* W, void* stream) {
+                         float* part, float* small, float* W, int phases,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return rt::with_types(x_dtype, v_dtype, [&](auto tx, auto tv) {
     return launch(K1e, K2e, static_cast<const decltype(tx)*>(Xt),
                   static_cast<const decltype(tv)*>(V), lam, lam_stride, noise,
-                  stationary, R, n, D, part, small, W, st);
+                  stationary, R, n, D, part, small, W, phases, st);
   });
 }

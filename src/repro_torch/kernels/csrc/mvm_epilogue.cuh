@@ -1,5 +1,5 @@
 // The O(N^2) middle of the Alg.-2 Gram MVM: reduce the per-CTA partials
-// of M_r = (Xt*lam) V_r^T in CTA order, then fold Alg. 2's small matrix
+// of M_r = (Xt*lam) V_r^T, then fold Alg. 2's small matrix
 //
 //   dot:         small_r = K2e * M_r
 //   stationary:  small_r = diag(rowsum(Mt)) - Mt,  Mt = K2e * (M_r - diag(M_r)[None, :])
@@ -8,33 +8,39 @@
 // memory. This is the TPU kernel's _small_from_m epilogue; it runs between
 // the two D-streams. A partial row holds the (n, R*n) product of Xt with
 // the stacked V, so M_r is its column block [r*n, (r+1)*n).
+//
+// The partials are added by fold.cuh's fold_entries over all kFoldThreads
+// threads of the CTA (kFoldThreads / n^2 runs an entry), so that many
+// loads are in flight: a fixed tree, the same bits on every run.
 #pragma once
 
 #include "common.cuh"
+#include "fold.cuh"
 
 namespace rt {
 
+constexpr int kFoldThreads = 1024;
+
+// M_r, Mt and the runs' sums (kFoldThreads floats, used when n*n leaves
+// room for two or more runs per entry).
 __host__ __device__ inline i64 mvm_small_smem_bytes(int n) {
-  return 2LL * n * n * (i64)sizeof(float);
+  return (2LL * n * n + kFoldThreads) * (i64)sizeof(float);
 }
 
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kFoldThreads)
     mvm_small(const float* __restrict__ part, int G, int n,
               const float* __restrict__ K2e, int stationary,
               float* __restrict__ small) {
   extern __shared__ float smem[];
   const int nn = n * n, r = blockIdx.x, ldp = gridDim.x * n;
   const int pstride = n * ldp;  // floats in one CTA's partial row
-  float* sM = smem;       // [n][n]
-  float* sT = smem + nn;  // [n][n]
+  float* sM = smem;             // [n][n]
+  float* sT = smem + nn;        // [n][n]
+  float* sRun = sT + nn;        // [kFoldThreads] the runs' sums
   small += (i64)r * nn;
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) {
-    const int at = (e / n) * ldp + r * n + e % n;  // M_r[e] in a row
-    float s = 0.f;
-#pragma unroll 8
-    for (int g = 0; g < G; ++g) s += part[(i64)g * pstride + at];
-    sM[e] = s;
-  }
+  // M_r[e] sits at column r*n + e%n of row e/n of a partial row
+  const auto at = [=](int e) { return (e / n) * ldp + r * n + e % n; };
+  fold_entries(part, pstride, G, nn, at, sRun, sM);
   __syncthreads();
   if (!stationary) {
     for (int e = threadIdx.x; e < nn; e += blockDim.x) small[e] = K2e[e] * sM[e];

@@ -8,27 +8,36 @@
 //   P (Na, Nb) = sum_d A[a, d] lam[d] B[b, d]
 //
 // What bounds it on an H100: bytes. Each column of D costs Na + Nb stream
-// elements and about 2 Na Nb f32 operations; at the query shape (Na = 64,
-// Nb = 16, f32) that is 320 bytes against 2,048 operations, about 6
-// operations a byte, under the card's ~20 (67 TFLOP/s f32 over 3.35 TB/s).
+// elements (Na when A and B are one tensor) and about 2 Na Nb f32
+// operations; at the query shape (Na = 64, Nb = 16, f32) that is 320 bytes
+// against 2,048 operations, about 6 operations a byte, under the card's
+// ~20 (67 TFLOP/s f32 over 3.35 TB/s).
 //
-// Design: the split-D first stage of splitk.cuh in its P-only mode (one
-// slice of D per CTA, each tile of A and B read once), then
-// reduce_partials adds the partial rows in CTA order. No atomics.
-#include "splitk.cuh"
+// Design: skinny_stage.cuh's pipelined first stage (one slice of D per
+// CTA, a persistent grid sized to the device, a cp.async ring that keeps
+// loads in flight while the FMAs run, each tile of A and B read once, and
+// A's rows alone when the caller passes one tensor as A and B), then
+// fold.cuh's reduce_partials adds the partial rows in a fixed tree. No
+// atomics.
+#include "fold.cuh"
+#include "skinny_stage.cuh"
 
-// A has storage dtype a_dtype, B has b_dtype. out holds P (na*nb); part
-// holds rt_split_plan(D) * na * nb floats of scratch.
+// A has storage dtype a_dtype, B has b_dtype; sym says that B is A (same
+// pointer, shape and dtype: its rows are read once). out holds P (na*nb);
+// part holds rt_split_plan(D) * na * nb floats of scratch.
 RT_EXPORT int sg_launch(int a_dtype, int b_dtype, const void* A,
                         const void* B, const float* lam, long long lam_stride,
-                        int na, int nb, long long D, float* part, float* out,
-                        void* stream) {
+                        int na, int nb, int sym, long long D, float* part,
+                        float* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return rt::with_types(a_dtype, b_dtype, [&](auto ta, auto tb) {
     using TA = decltype(ta);
     using TB = decltype(tb);
-    return rt::split_reduce<TA, TB, TB, rt::kSplitP>(
-        static_cast<const TA*>(A), static_cast<const TB*>(B), nullptr, lam,
-        lam_stride, nullptr, 0, na, nb, D, part, out, st);
+    const int err = rt::skinny_stage<TA, TB>(
+        static_cast<const TA*>(A), static_cast<const TB*>(B), lam, lam_stride,
+        na, nb, sym, D, part, st);
+    if (err != 0) return err;
+    return static_cast<int>(
+        rt::launch_reduce(part, rt::stage_plan(D).ctas, na * nb, out, st));
   });
 }

@@ -1,9 +1,12 @@
-// Split-D reductions: the first stage of every sum over D in the port.
+// Split-D reductions: the first stage of the sums over D that also fold
+// row norms (fused_gram_norms, fused_factor_build). The P-only stage of
+// skinny_gram and the Gram MVMs is skinny_stage.cuh.
 //
 // On the TPU one grid walked D in order and kept an f32 accumulator
 // resident in VMEM. Hopper runs its CTAs at the same time, so here CTA c
 // reduces its own slice of columns [c*chunk, min(D, (c+1)*chunk)) into an
-// f32 partial row, and a second launch adds the partial rows in CTA order.
+// f32 partial row, and a second launch (fold.cuh's reduce_partials) adds
+// the partial rows in a fixed tree.
 // No atomics: the result is the same bits on every run.
 //
 // Per tile of kTileD columns, one warp per matrix row loads the tile into
@@ -15,12 +18,18 @@
 // CTA splits the tile's columns between thread groups and adds the groups
 // in order at the end of its slice.
 //
-// Three output modes share the body: P alone (skinny_gram and the Gram
-// MVMs), P with both norm strips (fused_gram_norms), and the full factor
-// bundle with the V stream (fused_factor_build).
+// Two output modes share the body: P with both norm strips
+// (fused_gram_norms), and the full factor bundle with the V stream
+// (fused_factor_build).
 #pragma once
 
 #include "common.cuh"
+#include "fold.cuh"
+
+#ifdef RT_SPLIT_PLAN
+#error "one split plan per library: splitk.cuh and skinny_stage.cuh both export rt_split_plan"
+#endif
+#define RT_SPLIT_PLAN 1
 
 namespace rt {
 
@@ -46,7 +55,7 @@ inline SplitPlan split_plan(i64 D) {
 }
 
 // What a first stage writes (see split_partials).
-enum SplitMode { kSplitP = 0, kSplitNorms = 1, kSplitFull = 2 };
+enum SplitMode { kSplitNorms = 1, kSplitFull = 2 };
 
 // Shared-memory rows are padded to an odd stride, so a warp storing one
 // column of 32 rows and a warp reading 32 rows of one column both hit 32
@@ -67,7 +76,7 @@ __host__ __device__ inline int split_norms_at(int na, int nb, int mode) {
   return (mode == kSplitFull ? 2 : 1) * na * nb;
 }
 __host__ __device__ inline int split_norms_len(int na, int nb, int mode) {
-  return mode == kSplitFull ? na + 2 * nb : mode == kSplitNorms ? na + nb : 0;
+  return mode == kSplitFull ? na + 2 * nb : na + nb;
 }
 
 // Width of one CTA's partial row.
@@ -91,7 +100,6 @@ __global__ void __launch_bounds__(kSplitThreads)
                    i64 lam_stride, const float* __restrict__ vs, i64 vs_stride,
                    int na, int nb, i64 D, i64 chunk, float* __restrict__ part) {
   constexpr bool FULL = MODE == kSplitFull;
-  constexpr bool NORMS = MODE != kSplitP;
   extern __shared__ float smem[];
   const int lda = odd_stride(na), ldb = odd_stride(nb);
   float* sA = smem;               // [kTileD][lda]
@@ -125,7 +133,7 @@ __global__ void __launch_bounds__(kSplitThreads)
     const bool active = slot < nslots && grp < groups;
     const int b = active ? slot / sa : 0;
     const int a0 = active ? slot % sa : 0;
-    const bool norms = NORMS && pass == 0;
+    const bool norms = pass == 0;
     float accP[kRowsPerThread], accC[kRowsPerThread];
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) accP[i] = accC[i] = 0.f;
@@ -225,25 +233,10 @@ __global__ void __launch_bounds__(kSplitThreads)
     }
   }
 
-  if (NORMS) {
-    __syncthreads();
-    const int at = split_norms_at(na, nb, MODE);
-    for (int i = tid; i < split_norms_len(na, nb, MODE); i += kSplitThreads)
-      out[at + i] = sNa[i];
-  }
-}
-
-// Second stage: out[e] = sum over CTAs g = 0, 1, ..., G-1 of
-// part[g * stride + e], always in that order.
-__global__ void __launch_bounds__(256)
-    reduce_partials(const float* __restrict__ part, int G, int stride,
-                    float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= stride) return;
-  float s = 0.f;
-#pragma unroll 8
-  for (int g = 0; g < G; ++g) s += part[(i64)g * stride + e];
-  out[e] = s;
+  __syncthreads();
+  const int at = split_norms_at(na, nb, MODE);
+  for (int i = tid; i < split_norms_len(na, nb, MODE); i += kSplitThreads)
+    out[at + i] = sNa[i];
 }
 
 // Both stages in stream order: part holds split_plan(D).ctas rows of
@@ -264,10 +257,8 @@ int split_reduce(const TA* A, const TB* B, const TV* V, const float* lam,
                                                    plan.chunk, part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int stride = split_stride(na, nb, MODE);
-  reduce_partials<<<(stride + 255) / 256, 256, 0, stream>>>(part, plan.ctas,
-                                                            stride, out);
-  return cudaGetLastError();
+  return launch_reduce(part, plan.ctas, split_stride(na, nb, MODE), out,
+                       stream);
 }
 
 }  // namespace rt

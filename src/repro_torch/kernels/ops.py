@@ -7,7 +7,8 @@ tensors launch the kernel (f32 or bf16 storage per stream, f32 outputs)
 on PyTorch's current stream, or raise. There is no third route.
 
 ``launches`` counts the wrapper calls that launched a kernel (one call of
-``fused_gram_mvm`` is three CUDA launches in stream order and counts once).
+``fused_gram_mvm`` is three CUDA launches in stream order and counts once;
+``fused_gram_mvm_phases`` makes them apart, for timing, and counts none).
 ``fused_gram_mvm`` with a stacked (R, N, D) V is the multi-RHS form, which
 counts as ``fused_gram_mvm_multi``.
 
@@ -186,6 +187,54 @@ def gram_update(K1: Tensor, M: Tensor, V: Tensor, X: Tensor, lam, *,
     return W
 
 
+def _gram_mvm_shapes(name: str, K1e: Tensor, K2e: Tensor, Xt: Tensor,
+                     V: Tensor) -> tuple[int, int, int]:
+    """Checks of the Gram MVM's operands; returns (R, N, D)."""
+    _check_2d(name, K1e=K1e, K2e=K2e, Xt=Xt)
+    stacked = isinstance(V, Tensor) and V.ndim == 3
+    if not stacked:
+        _check_2d(name, V=V)
+    elif V.numel() == 0:
+        raise ValueError(f"{name}: V must be a non-empty (N, D) or "
+                         f"(R, N, D) tensor, got {tuple(V.shape)}")
+    r, n, d = V.shape if stacked else (1, *V.shape)
+    if Xt.shape != (n, d) or K1e.shape != (n, n) or K2e.shape != (n, n):
+        raise ValueError(f"{name}: shapes K1e {tuple(K1e.shape)}, K2e "
+                         f"{tuple(K2e.shape)}, Xt {tuple(Xt.shape)}, V "
+                         f"{tuple(V.shape)} do not fit")
+    _contiguous(name, K1e, K2e, Xt, V)
+    return r, n, d
+
+
+def _gram_mvm_card(name: str, K1e: Tensor, K2e: Tensor, Xt: Tensor,
+                   V: Tensor, lam, stationary: bool, noise: float):
+    """W and ``launch(phases)``, which makes the library's launches of the
+    ``phases`` mask (1 first stage, 2 fold, 4 output stream) on W and the
+    scratch allocated here."""
+    lib = "fused_gram_mvm"
+    codes = _stream_code(name, Xt), _stream_code(name, V)
+    _f32_small(name, K1e, K2e)
+    r, n, d = V.shape if V.ndim == 3 else (1, *V.shape)
+    dev = V.device
+    lam_t, lam_s = _lane(name, lam, d, dev)
+    with torch.cuda.device(dev):
+        G, _ = _build.split_plan(lib, d)
+    part = torch.empty((G, r * n * n), dtype=torch.float32, device=dev)
+    small = torch.empty((r, n, n), dtype=torch.float32, device=dev)
+    W = torch.empty(V.shape, dtype=torch.float32, device=dev)
+
+    def launch(phases: int) -> None:
+        with torch.cuda.device(dev):
+            err = _build.launcher(lib)(
+                *codes, K1e.data_ptr(), K2e.data_ptr(), Xt.data_ptr(),
+                V.data_ptr(), lam_t.data_ptr(), lam_s, float(noise),
+                int(bool(stationary)), r, n, d, part.data_ptr(),
+                small.data_ptr(), W.data_ptr(), phases, _stream_ptr(dev))
+        _raise_on(lib, err)
+
+    return W, launch
+
+
 def fused_gram_mvm(K1e: Tensor, K2e: Tensor, Xt: Tensor, V: Tensor, lam, *,
                    stationary: bool, noise: float = 0.0) -> Tensor:
     """The full Alg.-2 Gram MVM W = (K1e @ V + small @ Xt) * lam + noise*V.
@@ -201,39 +250,33 @@ def fused_gram_mvm(K1e: Tensor, K2e: Tensor, Xt: Tensor, V: Tensor, lam, *,
     """
     stacked = isinstance(V, Tensor) and V.ndim == 3
     name = "fused_gram_mvm_multi" if stacked else "fused_gram_mvm"
-    _check_2d(name, K1e=K1e, K2e=K2e, Xt=Xt)
-    if not stacked:
-        _check_2d(name, V=V)
-    elif V.numel() == 0:
-        raise ValueError(f"{name}: V must be a non-empty (N, D) or "
-                         f"(R, N, D) tensor, got {tuple(V.shape)}")
-    r, n, d = V.shape if stacked else (1, *V.shape)
-    if Xt.shape != (n, d) or K1e.shape != (n, n) or K2e.shape != (n, n):
-        raise ValueError(f"{name}: shapes K1e {tuple(K1e.shape)}, K2e "
-                         f"{tuple(K2e.shape)}, Xt {tuple(Xt.shape)}, V "
-                         f"{tuple(V.shape)} do not fit")
-    _contiguous(name, K1e, K2e, Xt, V)
+    _gram_mvm_shapes(name, K1e, K2e, Xt, V)
     if _on_cpu(name, K1e, K2e, Xt, V):
         return ref.fused_gram_mvm_ref(K1e, K2e, Xt, V, lam,
                                       stationary=stationary, noise=noise)
-    lib = "fused_gram_mvm"
-    codes = _stream_code(name, Xt), _stream_code(name, V)
-    _f32_small(name, K1e, K2e)
-    dev = V.device
-    lam_t, lam_s = _lane(name, lam, d, dev)
-    G, _ = _build.split_plan(lib, d)
-    part = torch.empty((G, r * n * n), dtype=torch.float32, device=dev)
-    small = torch.empty((r, n, n), dtype=torch.float32, device=dev)
-    W = torch.empty(V.shape, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _build.launcher(lib)(
-            *codes, K1e.data_ptr(), K2e.data_ptr(), Xt.data_ptr(), V.data_ptr(),
-            lam_t.data_ptr(), lam_s, float(noise), int(bool(stationary)), r,
-            n, d, part.data_ptr(), small.data_ptr(), W.data_ptr(),
-            _stream_ptr(dev))
-    _raise_on(lib, err)
+    W, launch = _gram_mvm_card(name, K1e, K2e, Xt, V, lam, stationary,
+                               noise)
+    launch(7)
     launches[name] += 1
     return W
+
+
+def fused_gram_mvm_phases(K1e: Tensor, K2e: Tensor, Xt: Tensor, V: Tensor,
+                          lam, *, stationary: bool, noise: float = 0.0):
+    """The card's three launches of one ``fused_gram_mvm`` call, apart:
+    [("first stage", fn), ("fold", fn), ("stream", fn)], each fn making that
+    launch alone on buffers that one whole product filled first. For
+    timing each launch; counts no launch. CUDA tensors only."""
+    name = "fused_gram_mvm"
+    _gram_mvm_shapes(name, K1e, K2e, Xt, V)
+    if _on_cpu(name, K1e, K2e, Xt, V):
+        raise ValueError(f"{name}: the phases are launches on the card")
+    _, launch = _gram_mvm_card(name, K1e, K2e, Xt, V, lam, stationary,
+                               noise)
+    launch(7)
+    return [(label, lambda m=mask: launch(m))
+            for label, mask in (("first stage", 1), ("fold", 2),
+                                ("stream", 4))]
 
 
 def _gram_pair(name: str, A: Tensor, B: Tensor):
@@ -246,34 +289,41 @@ def _gram_pair(name: str, A: Tensor, B: Tensor):
     return A.shape[0], B.shape[0], A.shape[1]
 
 
-def _launch_gram_pair(name: str, A: Tensor, B: Tensor, lam, width: int
-                      ) -> Tensor:
+def _launch_gram_pair(name: str, A: Tensor, B: Tensor, lam, width: int,
+                      *flags: int) -> Tensor:
     """Launch a split-D (A, B) kernel whose reduced row is ``width``
-    floats; returns that row."""
+    floats, passing ``flags`` after the row counts; returns that row."""
     na, d = A.shape
     nb = B.shape[0]
     codes = _stream_code(name, A), _stream_code(name, B)
     dev = A.device
     lam_t, lam_s = _lane(name, lam, d, dev)
-    G, _ = _build.split_plan(name, d)
+    with torch.cuda.device(dev):
+        G, _ = _build.split_plan(name, d)
     part = torch.empty((G, width), dtype=torch.float32, device=dev)
     out = torch.empty((width,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.launcher(name)(
             *codes, A.data_ptr(), B.data_ptr(), lam_t.data_ptr(), lam_s, na,
-            nb, d, part.data_ptr(), out.data_ptr(), _stream_ptr(dev))
+            nb, *flags, d, part.data_ptr(), out.data_ptr(), _stream_ptr(dev))
     _raise_on(name, err)
     launches[name] += 1
     return out
 
 
 def skinny_gram(A: Tensor, B: Tensor, lam) -> Tensor:
-    """P = (A*lam) @ B^T (Na, Nb); A: (Na, D), B: (Nb, D) streamed once."""
+    """P = (A*lam) @ B^T (Na, Nb); A: (Na, D), B: (Nb, D) streamed once.
+
+    When B is A (same data pointer, shape and dtype, as in
+    ``build_factors(X, X)``) the card reads its rows once."""
     name = "skinny_gram"
     na, nb, _ = _gram_pair(name, A, B)
     if _on_cpu(name, A, B):
         return ref.skinny_gram_ref(A, B, lam)
-    return _launch_gram_pair(name, A, B, lam, na * nb).view(na, nb)
+    sym = (A.data_ptr() == B.data_ptr() and A.shape == B.shape
+           and A.dtype == B.dtype)
+    return _launch_gram_pair(name, A, B, lam, na * nb,
+                             int(sym)).view(na, nb)
 
 
 def fused_gram_norms(A: Tensor, B: Tensor, lam):

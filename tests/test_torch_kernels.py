@@ -23,7 +23,7 @@ import torch
 from repro.core import backend as jbackend
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 
 D = 300
 X64_TOL = 1e-12
@@ -366,3 +366,40 @@ def test_cpu_route_counts_no_launch():
     ops.small_matmul(torch.eye(3, dtype=torch.float64), A, 2.0)
     assert all(v == 0 for v in ops.launches.values())
     assert ref.cuda_calls == calls
+
+
+def test_gram_mvm_phases_are_card_launches():
+    """The Gram MVM's launches, apart for timing, exist only on the card;
+    on the CPU the helper refuses rather than run the plain version."""
+    A = torch.tensor(_arr(1, 3, D))
+    eye = torch.eye(3, dtype=torch.float64)
+    with pytest.raises(ValueError, match="on the card"):
+        ops.fused_gram_mvm_phases(eye, eye, A, A, 0.5, stationary=True)
+    with pytest.raises(ValueError):  # the same shape checks as the product
+        ops.fused_gram_mvm_phases(eye, eye, A, torch.zeros(2, D), 0.5,
+                                  stationary=True)
+
+
+def _c_params(src: str, entry: str) -> list[str]:
+    """The parameter list of the exported C function ``entry`` in src."""
+    start = src.index(f"RT_EXPORT int {entry}(") + len(f"RT_EXPORT int {entry}(")
+    return [p.strip() for p in src[start:src.index(")", start)].split(",")]
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_ctypes_signatures_match_the_c_entry_points(name):
+    """ctypes passes each argument as the type _build declares: a count or
+    kind that differs from the C declaration would pass garbage on the
+    card, where nothing checks it."""
+    entry, argtypes = _build.SIGNATURES[name]
+    params = _c_params((_build.CSRC / f"{name}.cu").read_text(), entry)
+    assert len(params) == len(argtypes)
+    for p, t in zip(params, argtypes):
+        if "*" in p:
+            assert t is _build._P, p
+        elif p.startswith("long long"):
+            assert t is _build._LL, p
+        elif p.startswith("float"):
+            assert t is _build._F, p
+        else:
+            assert p.startswith("int") and t is _build._I, p
