@@ -18,8 +18,9 @@ printed only when every phase passed:
      atomics); kernel, plain-version and bound times, the time of one
      PyTorch call computing the same function where there is one, and
      the Gram MVMs' three launches (first stage, fold, output stream)
-     timed apart. The A = B case passes one tensor twice, as
-     build_factors(X, X) does: skinny_gram's symmetric mode;
+     timed apart. The A = B cases pass one tensor twice, as
+     build_factors(X, X) and the bundle sweep do: the symmetric mode of
+     the split-D stage;
   4. the main path at full width: an rbf ``GPGState`` with D = 4,194,304
      and a window of 16 takes 24 observations of a seeded random walk (8
      evictions), then ``build_gp_serve_step`` answers 4 requests of 64
@@ -212,6 +213,16 @@ def kernel_cases(torch, d, bf16, lanes, gen):
         lambda: ref.fused_factor_build_ref(Xt, x, None, lam),
         17 * d * es + lane_bytes + 4 * (2 * 16 + 16 + 2),
         4 * 16 * d + 4 * 16 * d + 7 * d, None, None))
+    # the bundle sweep (build_factor_bundle, Woodbury): one tensor as A and
+    # B, so the bound reads Xt once; G is f32; v_scale is 1 on the path
+    bvs = vs if lanes else 1.0
+    out.append((
+        "fused_factor_build", "bundle A=B (16,16)" + tag,
+        lambda: ops.fused_factor_build(Xt, Xt, Z, lam, v_scale=bvs),
+        lambda: ref.fused_factor_build_ref(Xt, Xt, Z, lam, bvs),
+        16 * d * es + 16 * d * 4 + 2 * lane_bytes
+        + 4 * (2 * 16 * 16 + 3 * 16),
+        4 * 16 * 16 * d + 4 * 16 * d + 7 * 16 * d, None, None))
     # the query path passes no v_scale; the per-lane case covers that
     # stride too
     gu_vs = vs if lanes else None
@@ -236,8 +247,9 @@ def kernel_cases(torch, d, bf16, lanes, gen):
                 K1e, K2e, Xt, Z, lam, stationary=s, noise=NOISE)))
     # B4/B5 at the query shape and with the same tensor as A and B, as
     # build_factors(X, X) calls them: the bound reads that tensor once, as
-    # skinny_gram's symmetric mode does (fused_gram_norms reads it twice)
-    for label, A, B in (("query (64,16)", Xq, Xt), ("A=B (16,16)", Xt, Xt)):
+    # the symmetric mode does; B4 also at infer_optimum's single query
+    for label, A, B in (("query (64,16)", Xq, Xt), ("A=B (16,16)", Xt, Xt),
+                        ("(1,16)", x, Xt)):
         na, nb = A.shape[0], B.shape[0]
         rows_read = na if A is B else na + nb
         P_out = torch.empty(na, nb, device="cuda")
@@ -247,6 +259,8 @@ def kernel_cases(torch, d, bf16, lanes, gen):
             lambda A=A, B=B: ref.fused_gram_norms_ref(A, B, lam),
             rows_read * d * es + lane_bytes + 4 * (na * nb + na + nb),
             2 * na * nb * d + 3 * (na + nb) * d, None, None))
+        if na == 1:
+            continue
         out.append((
             "skinny_gram", label + tag,
             lambda A=A, B=B: ops.skinny_gram(A, B, lam),

@@ -31,7 +31,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # source name -> (C entry point, its argument types); see csrc/<name>.cu.
 SIGNATURES = {
     "fused_factor_build": ("ffb_launch", [
-        _I, _I, _P, _P, _P, _P, _LL, _P, _LL, _I, _I, _LL, _P, _P, _P]),
+        _I, _I, _P, _P, _P, _P, _LL, _P, _LL, _I, _I, _I, _I, _LL, _P, _P,
+        _P]),
     "gram_update": ("gu_launch", [
         _I, _I, _P, _P, _P, _P, _P, _LL, _P, _LL, _F, _I, _I, _LL, _P, _P]),
     "fused_gram_mvm": ("fgm_launch", [
@@ -40,17 +41,19 @@ SIGNATURES = {
     "skinny_gram": ("sg_launch", [
         _I, _I, _P, _P, _P, _LL, _I, _I, _I, _LL, _P, _P, _P]),
     "fused_gram_norms": ("fgn_launch", [
-        _I, _I, _P, _P, _P, _LL, _I, _I, _LL, _P, _P, _P]),
+        _I, _I, _P, _P, _P, _LL, _I, _I, _I, _LL, _P, _P, _P]),
     "small_matmul": ("sm_launch", [
         _I, _P, _P, _P, _LL, _I, _I, _LL, _P, _P]),
 }
-# Sources whose kernels reduce over D in two stages; their libraries export
-# the split plan of their first stage: csrc/splitk.cuh's fixed plan, or
-# csrc/skinny_stage.cuh's, which depends on the device (STAGE; these also
-# export the stage's ring length).
-SPLIT = ("fused_factor_build", "fused_gram_mvm", "skinny_gram",
+# Sources whose kernels reduce over D in two stages, all on the ring of
+# csrc/skinny_stage.cuh (csrc/factor_stage.cuh adds the norms and full
+# modes). Their libraries export its one split plan, which depends on the
+# device's SM count (rt_split_plan), and the columns one ring holds for
+# given operands (rt_stage_ring).
+STAGE = ("fused_factor_build", "fused_gram_mvm", "skinny_gram",
          "fused_gram_norms")
-STAGE = ("fused_gram_mvm", "skinny_gram")
+# The flags of rt_stage_ring (csrc/common.cuh, RT_RING_*).
+RING_SYM, RING_VEC_LAM, RING_V_IS_B, RING_VEC_VS = 1, 2, 4, 8
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -131,10 +134,9 @@ def launcher(name: str):
         fn.restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]
         lib.rt_error_string.restype = ctypes.c_char_p
-        if name in SPLIT:
+        if name in STAGE:
             lib.rt_split_plan.argtypes = [_LL, ctypes.POINTER(_LL)]
             lib.rt_split_plan.restype = ctypes.c_int
-        if name in STAGE:
             lib.rt_stage_ring.argtypes = [_I] * 6
             lib.rt_stage_ring.restype = ctypes.c_int
         _LIBS[name] = lib
@@ -151,13 +153,16 @@ def split_plan(name: str, d: int) -> tuple[int, int]:
 
 
 def stage_ring(name: str, a_code: int, b_code: int, na: int, nb: int, *,
-               sym: bool = False, vec_lam: bool = False) -> int:
-    """Columns that one ring of csrc/skinny_stage.cuh holds (stages x tile
-    width) for these operands on the current device; negative when no ring
-    fits its shared memory (the launcher then refuses the shape)."""
+               sym: bool = False, vec_lam: bool = False, v_code: int = 0,
+               v_is_b: bool = False, vec_vs: bool = False) -> int:
+    """Columns that one ring of the library's first stage holds (stages x
+    tile width) for these operands on the current device; negative when no
+    ring fits its shared memory (the launcher then refuses the shape). ``v_code``, ``v_is_b`` and ``vec_vs`` describe
+    fused_factor_build's V and v_scale; the other libraries ignore them."""
     launcher(name)
-    return _LIBS[name].rt_stage_ring(a_code, b_code, na, nb, int(sym),
-                                     int(vec_lam))
+    flags = (RING_SYM * sym | RING_VEC_LAM * vec_lam | RING_V_IS_B * v_is_b
+             | RING_VEC_VS * vec_vs)
+    return _LIBS[name].rt_stage_ring(a_code, b_code, v_code, na, nb, flags)
 
 
 def error_string(name: str, code: int) -> str:

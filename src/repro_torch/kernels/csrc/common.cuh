@@ -41,6 +41,10 @@ constexpr i64 kSmemBytes = 48 * 1024;
 
 // Stream dtype codes, shared with kernels/ops.py.
 enum { RT_F32 = 0, RT_BF16 = 1 };
+// Flags of each split-D library's rt_stage_ring: B is A, a (D,) lam, V is
+// B, a (D,) v_scale.
+enum { RT_RING_SYM = 1, RT_RING_VEC_LAM = 2, RT_RING_V_IS_B = 4,
+       RT_RING_VEC_VS = 8 };
 // Returned by a launcher for a shape or dtype its kernel does not take.
 #define RT_BAD_SHAPE (-1)
 #define RT_EXPORT extern "C" __attribute__((visibility("default")))

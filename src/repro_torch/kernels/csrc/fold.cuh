@@ -7,8 +7,9 @@
 // are then added in run order. The tree depends only on G and the shape,
 // so two launches give the same bits. No atomics.
 //
-// The body is fold_entries; reduce_partials (B1, B4, B5) calls it over 32
-// entries a block, mvm_small (B3) over one M_r a block.
+// The body is fold_entries; reduce_partials (B5) and reduce_mapped (B1,
+// B4) call it over 32 entries a block, mvm_small (B3) over one M_r a
+// block.
 #pragma once
 
 #include "common.cuh"
@@ -59,6 +60,28 @@ inline cudaError_t launch_reduce(const float* part, int G, int stride,
                                  float* out, cudaStream_t stream) {
   reduce_partials<<<(stride + kWarp - 1) / kWarp, kFoldRuns * kWarp, 0,
                     stream>>>(part, G, stride, out);
+  return cudaGetLastError();
+}
+
+// out[e] = the sum over g of part[g * stride + map(e)] for e < width, 32
+// entries a block: map picks the column an entry sums (factor_stage.cuh's
+// RowLayout, which reads na off P's diagonal when B is A).
+template <typename Map>
+__global__ void __launch_bounds__(kFoldRuns* kWarp)
+    reduce_mapped(const float* __restrict__ part, int G, int stride,
+                  int width, Map map, float* __restrict__ out) {
+  __shared__ float sRun[kFoldRuns * kWarp];
+  const int e0 = blockIdx.x * kWarp;
+  const int n = width - e0 < kWarp ? width - e0 : kWarp;
+  fold_entries(part, stride, G, n, [=](int e) { return map(e0 + e); }, sRun,
+               out + e0);
+}
+
+template <typename Map>
+cudaError_t launch_reduce(const float* part, int G, int stride, int width,
+                          Map map, float* out, cudaStream_t stream) {
+  reduce_mapped<<<(width + kWarp - 1) / kWarp, kFoldRuns * kWarp, 0,
+                  stream>>>(part, G, stride, width, map, out);
   return cudaGetLastError();
 }
 

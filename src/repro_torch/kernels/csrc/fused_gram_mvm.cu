@@ -97,3 +97,11 @@ RT_EXPORT int fgm_launch(int x_dtype, int v_dtype, const float* K1e,
                   stationary, R, n, D, part, small, W, phases, st);
   });
 }
+
+// Columns one ring of the first stage holds for Xt (a_dtype, n rows) and
+// the stacked V (b_dtype, R*n rows) on the current device
+// (rt::p_ring_columns); v_dtype is not read, flags are RT_RING_*.
+RT_EXPORT int rt_stage_ring(int a_dtype, int b_dtype, int v_dtype, int na,
+                            int nb, int flags) {
+  return rt::p_ring_columns(a_dtype, b_dtype, na, nb, flags);
+}

@@ -41,3 +41,10 @@ RT_EXPORT int sg_launch(int a_dtype, int b_dtype, const void* A,
         rt::launch_reduce(part, rt::stage_plan(D).ctas, na * nb, out, st));
   });
 }
+
+// Columns one ring of the stage holds for these operands on the current
+// device (rt::p_ring_columns); v_dtype is not read, flags are RT_RING_*.
+RT_EXPORT int rt_stage_ring(int a_dtype, int b_dtype, int v_dtype, int na,
+                            int nb, int flags) {
+  return rt::p_ring_columns(a_dtype, b_dtype, na, nb, flags);
+}

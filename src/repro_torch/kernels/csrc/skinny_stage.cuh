@@ -1,17 +1,20 @@
-// The P-only split-D first stage for Hopper: per-CTA partials of
+// The split-D first stage for Hopper, P-only: per-CTA partials of
 //
 //   P (Na, Nb) = sum_d A[a, d] lam[d] B[b, d]
 //
 // for skinny_gram (B5) and the M-reduction of fused_gram_mvm (B3, and B7
-// with R stacked right-hand sides). A CTA reduces one contiguous slice of
-// D into one f32 partial row; fold.cuh adds the rows in a fixed tree
+// with R stacked right-hand sides). factor_stage.cuh builds the norms and
+// full modes of fused_gram_norms (B4) and fused_factor_build (B1) on this
+// file's ring, copies, device query and plan: every split-D library of the
+// port cuts D with stage_plan. A CTA reduces one contiguous slice of D into
+// one f32 partial row; fold.cuh adds the rows in a fixed tree
 // (reduce_partials, or inside the Gram MVM's mvm_small). No atomics: the
 // same bits on every run.
 //
 // What bounds it on an H100: bytes. A column costs Na + Nb stream elements
 // (Na when A and B are one tensor) against 2 Na Nb f32 operations: at the
 // query shape (64, 16) f32, about 6 operations a byte under the card's ~20.
-// splitk.cuh's first version moved one 32-column tile between two
+// The port's first split-D stage moved one 32-column tile between two
 // barriers, so a CTA's loads and FMAs never overlapped and far fewer bytes
 // were in flight than HBM latency needs (~3.35 TB/s x ~1 us).
 //
@@ -52,11 +55,6 @@
 #include <stdint.h>
 
 #include "common.cuh"
-
-#ifdef RT_SPLIT_PLAN
-#error "one split plan per library: splitk.cuh and skinny_stage.cuh both export rt_split_plan"
-#endif
-#define RT_SPLIT_PLAN 1
 
 namespace rt {
 
@@ -479,13 +477,18 @@ RT_EXPORT int rt_split_plan(long long D, long long* chunk) {
   return plan.ctas;
 }
 
-// Columns one ring of the first stage holds (stages x tile width) for
-// these operands on the current device, or RT_BAD_SHAPE when none fits.
-RT_EXPORT int rt_stage_ring(int a_dtype, int b_dtype, int na, int nb,
-                            int sym, int vec_lam) {
-  return rt::with_types(a_dtype, b_dtype, [&](auto ta, auto tb) {
-    const rt::StageShape sh =
-        rt::stage_shape<decltype(ta), decltype(tb)>(na, nb, sym, vec_lam);
+namespace rt {
+
+// Columns one ring of the stage holds (stages x tile width) for these
+// operands on the current device, or RT_BAD_SHAPE when none fits: each P
+// library's rt_stage_ring.
+inline int p_ring_columns(int a_dtype, int b_dtype, int na, int nb,
+                          int flags) {
+  return with_types(a_dtype, b_dtype, [&](auto ta, auto tb) {
+    const StageShape sh = stage_shape<decltype(ta), decltype(tb)>(
+        na, nb, flags & RT_RING_SYM, flags & RT_RING_VEC_LAM);
     return sh.sw == 0 ? RT_BAD_SHAPE : sh.tw() * sh.stages;
   });
 }
+
+}  // namespace rt

@@ -109,6 +109,13 @@ def _raise_on(name: str, code: int) -> None:
     raise RuntimeError(msg)
 
 
+def _same(X: Tensor, Y: Tensor) -> bool:
+    """One tensor passed twice (same data pointer, shape and dtype): the
+    card reads its rows once."""
+    return (X.data_ptr() == Y.data_ptr() and X.shape == Y.shape
+            and X.dtype == Y.dtype)
+
+
 def fused_factor_build(A: Tensor, B: Tensor, V: Tensor | None, lam, *,
                        v_scale=1.0):
     """(P, na, nb, C, tv) in one read of A, B, V.
@@ -116,6 +123,8 @@ def fused_factor_build(A: Tensor, B: Tensor, V: Tensor | None, lam, *,
     A: (Na, D), B: (Nb, D), V: (Nb, D) or None to reuse B. Returns
     P = (A*lam) @ B^T (Na, Nb), row norms na (Na,) / nb (Nb,),
     C = (V*v_scale) @ A^T (Nb, Na) and tv = rowdots(B, V, lam) (Nb,).
+    When B is A (the bundle sweep) or V is B (the extend border) the card
+    reads that tensor's rows once.
     """
     name = "fused_factor_build"
     if V is None:
@@ -133,15 +142,18 @@ def fused_factor_build(A: Tensor, B: Tensor, V: Tensor | None, lam, *,
     dev = A.device
     lam_t, lam_s = _lane(name, lam, d, dev)
     vs_t, vs_s = _lane(name, v_scale, d, dev)
-    G, _ = _build.split_plan(name, d)
-    stride = 2 * na * nb + na + 2 * nb
-    part = torch.empty((G, stride), dtype=torch.float32, device=dev)
-    out = torch.empty((stride,), dtype=torch.float32, device=dev)
+    width = 2 * na * nb + na + 2 * nb
     with torch.cuda.device(dev):
+        G, _ = _build.split_plan(name, d)
+        # the partial rows leave out what B is A or V is B make redundant,
+        # so the reduced row's width bounds them
+        part = torch.empty((G, width), dtype=torch.float32, device=dev)
+        out = torch.empty((width,), dtype=torch.float32, device=dev)
         err = _build.launcher(name)(
             *codes, A.data_ptr(), B.data_ptr(), V.data_ptr(), lam_t.data_ptr(),
-            lam_s, vs_t.data_ptr(), vs_s, na, nb, d, part.data_ptr(),
-            out.data_ptr(), _stream_ptr(dev))
+            lam_s, vs_t.data_ptr(), vs_s, na, nb, int(_same(A, B)),
+            int(_same(V, B)), d, part.data_ptr(), out.data_ptr(),
+            _stream_ptr(dev))
     _raise_on(name, err)
     launches[name] += 1
     k = na * nb
@@ -320,21 +332,21 @@ def skinny_gram(A: Tensor, B: Tensor, lam) -> Tensor:
     na, nb, _ = _gram_pair(name, A, B)
     if _on_cpu(name, A, B):
         return ref.skinny_gram_ref(A, B, lam)
-    sym = (A.data_ptr() == B.data_ptr() and A.shape == B.shape
-           and A.dtype == B.dtype)
     return _launch_gram_pair(name, A, B, lam, na * nb,
-                             int(sym)).view(na, nb)
+                             int(_same(A, B))).view(na, nb)
 
 
 def fused_gram_norms(A: Tensor, B: Tensor, lam):
     """(P, na, nb) in one read of A and B: P = (A*lam) @ B^T (Na, Nb) and
-    the lam-weighted row norms na (Na,) and nb (Nb,)."""
+    the lam-weighted row norms na (Na,) and nb (Nb,). When B is A (as in
+    ``build_factors(X, X)`` and ``from_data``) the card reads its rows
+    once."""
     name = "fused_gram_norms"
     na, nb, _ = _gram_pair(name, A, B)
     if _on_cpu(name, A, B):
         return ref.fused_gram_norms_ref(A, B, lam)
     k = na * nb
-    out = _launch_gram_pair(name, A, B, lam, k + na + nb)
+    out = _launch_gram_pair(name, A, B, lam, k + na + nb, int(_same(A, B)))
     return out[:k].view(na, nb), out[k:k + na], out[k + na:]
 
 

@@ -242,6 +242,26 @@ def test_skinny_gram_and_gram_norms_match_pallas_interpret(bf16, lam_kind):
         assert _rel(g.numpy(), w) <= F32_TOL
 
 
+@pytest.mark.parametrize("lam_kind", ["scalar", "vector"])
+def test_one_tensor_as_a_and_b_matches_jax_ref(lam_kind):
+    """The bundle sweep's fused_factor_build(X, X, G) and from_data's
+    fused_gram_norms(X, X): one tensor as A and B, as the card's symmetric
+    mode takes it, against the JAX package's plain kernels (f32 sums on
+    both sides)."""
+    (Xj, Xt), (Gj, Gt) = (_stream_pair(_arr(s, 6, D), False) for s in (1, 2))
+    lam = _lam(lam_kind)
+    pairs = ((ops.fused_factor_build(Xt, Xt, Gt, _torch(lam, torch.float32)),
+              jref.fused_factor_build_ref(Xj, Xj, Gj, _jax(lam, jnp.float32))),
+             (ops.fused_gram_norms(Xt, Xt, _torch(lam, torch.float32)),
+              jref.fused_gram_norms_ref(Xj, Xj, _jax(lam, jnp.float32))))
+    for got, want in pairs:
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            w = np.asarray(w).reshape(tuple(g.shape))
+            assert _rel(g.numpy(), w) <= F32_TOL
+
+
 # ---------------------------------------------------------------------------
 # small_matmul (the Kronecker preconditioner) and the stacked Gram MVM
 # ---------------------------------------------------------------------------

@@ -173,20 +173,17 @@ def test_multi_rhs_past_the_shared_memory_budget_raises(sm90):
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [1, 31, 32, 300, 16_385, 1_000_003, 4_194_304])
 def test_split_plan_covers_d(sm90, d):
-    """The split plan each library owns: every column of D in exactly one
-    slice. splitk.cuh's plan cuts whole 32-column tiles into at most 512
-    slices; the pipelined stage's (skinny_gram, the Gram MVMs) cuts whole
-    256-column quanta into at most one slice per SM of this card."""
+    """The one split plan, which every split-D library exports: every
+    column of D in exactly one slice, whole 256-column quanta cut into at
+    most one slice per SM of this card, the same in every library."""
     from repro_torch.kernels import _build
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name in _build.SPLIT:
-        G, chunk = _build.split_plan(name, d)
-        assert (G - 1) * chunk < d <= G * chunk
-        if name in _build.STAGE:
-            assert chunk % 256 == 0 and 1 <= G <= sms
-        else:
-            assert chunk % 32 == 0 and 1 <= G <= 512
+    plans = {_build.split_plan(name, d) for name in _build.STAGE}
+    assert len(plans) == 1
+    G, chunk = plans.pop()
+    assert (G - 1) * chunk < d <= G * chunk
+    assert chunk % 256 == 0 and 1 <= G <= sms
 
 
 @pytest.mark.gpu
@@ -220,6 +217,31 @@ def test_kernels_raise_on_what_they_do_not_take(sm90):
                 ref.skinny_gram_ref(A, B, 0.5).cpu().numpy()) <= F32_TOL
     with pytest.raises(ValueError, match="not supported"):
         ops.skinny_gram(A, _rnd(gen, nb + 1, 1000), 0.5)
+    # The same for the norms and full modes. splitk.cuh's first stage took
+    # at most 235 rows of B beside 64 of A in fused_gram_norms and 121 rows
+    # of B and of V in fused_factor_build (48 KB of one-tile staging); the
+    # stage takes at least those, narrow sub-tiles keeping three stages.
+    for lib, least, ring in (
+            ("fused_gram_norms", 235, lambda k: _build.stage_ring(
+                "fused_gram_norms", 0, 0, 64, k)),
+            ("fused_factor_build", 121, lambda k: _build.stage_ring(
+                "fused_factor_build", 0, 0, 64, k, v_code=0))):
+        nb = max(k for k in range(1, 1024) if ring(k) > 0)
+        assert nb >= least and ring(nb + 1) < 0
+        for rows, fits in ((nb, True), (nb + 1, False)):
+            B = _rnd(gen, rows, 1000)
+            call = ((lambda: ops.fused_gram_norms(A, B, 0.5))
+                    if lib == "fused_gram_norms" else
+                    (lambda: ops.fused_factor_build(A, B, B.clone(), 0.5)))
+            if not fits:
+                with pytest.raises(ValueError, match="not supported"):
+                    call()
+                continue
+            want = (ref.fused_gram_norms_ref(A, B, 0.5)
+                    if lib == "fused_gram_norms" else
+                    ref.fused_factor_build_ref(A, B, B, 0.5, 1.0))
+            for g, w in zip(call(), want):
+                assert _rel(g.cpu().numpy(), w.cpu().numpy()) <= F32_TOL
 
 
 # ---------------------------------------------------------------------------
@@ -239,15 +261,24 @@ def _rnd(gen, *shape, dtype=torch.float32):
     return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
 
-def _stage_d(d, lib, a_dtype, b_dtype, na, nb, per_lane):
+def _stage_d(d, lib, a_dtype, b_dtype, na, nb, per_lane, **ring_kw):
     if not isinstance(d, str):
         return d
     from repro_torch.kernels import _build
 
     ring = _build.stage_ring(lib, CODES[a_dtype], CODES[b_dtype], na, nb,
-                             vec_lam=per_lane)
+                             vec_lam=per_lane, **ring_kw)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return sms * ring + (1 if d == "ring+1" else -1)
+
+
+def _rows(gen, n, d, dtype=torch.float32):
+    """n rows of noise about distinct means 1 + j/n: no output of B1 or B4
+    sums to near zero (a one-entry output that cancels would make the
+    error relative to its max-abs meaningless), and two rows never give
+    the same sums, so a row read in the wrong place shows."""
+    mean = 1.0 + torch.arange(n, device="cuda")[:, None] / n
+    return (_rnd(gen, n, d) + mean).to(dtype)
 
 
 def _stage_lam(gen, per_lane, d):
@@ -314,6 +345,66 @@ def test_skinny_gram_symmetric_mode_on_card(sm90, n, d, dtype, per_lane):
     assert _rel(got, ref.skinny_gram_ref(X, X, lam).cpu().numpy()) <= F32_TOL
 
 
+# fused_factor_build's three ways of reading its streams: V distinct, V is
+# B (the extend border) and B is A (the bundle sweep), at the stage's row
+# counts.
+FFB_CASES = ([(na, nb, "V") for na in (1, 5, 16, 64) for nb in (1, 16)]
+             + [(na, nb, "V=B") for na in (1, 5, 16, 64) for nb in (1, 16)]
+             + [(n, n, "A=B") for n in (1, 5, 16, 64)])
+
+
+@pytest.mark.gpu
+@LANES
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("na,nb,mode", FFB_CASES)
+def test_factor_build_stage_widths_on_card(sm90, na, nb, mode, dtype,
+                                           per_lane):
+    """B1 in the stage's full mode at every width of STAGE_DS: A and B
+    stored in ``dtype``, a distinct V in f32 (the solve Z); lam and v_scale
+    both scalars or both (D,). The widths run in one test each (a case
+    apiece would add a thousand skips to the CPU run)."""
+    v_is_b = mode == "V=B"
+    for d in STAGE_DS:
+        d = _stage_d(d, "fused_factor_build", dtype, dtype, na, nb, per_lane,
+                     sym=mode == "A=B", v_is_b=v_is_b, vec_vs=per_lane,
+                     v_code=CODES[dtype] if v_is_b else 0)
+        gen = torch.Generator(device="cuda").manual_seed(na * 100 + nb)
+        A = _rows(gen, na, d, dtype=dtype)
+        B = A if mode == "A=B" else _rows(gen, nb, d, dtype=dtype)
+        V = None if v_is_b else _rows(gen, nb, d)
+        lam, vs = _stage_lam(gen, per_lane, d), _stage_lam(gen, per_lane, d)
+        got = ops.fused_factor_build(A, B, V, lam, v_scale=vs)
+        want = ref.fused_factor_build_ref(A, B, V, lam, vs)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            assert _rel(g.cpu().numpy(), w.cpu().numpy()) <= F32_TOL, d
+
+
+GFN_CASES = ([(na, nb, False) for na in (1, 5, 16, 64) for nb in (1, 16)]
+             + [(n, n, True) for n in (1, 5, 16, 64)])
+
+
+@pytest.mark.gpu
+@LANES
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("na,nb,sym", GFN_CASES)
+def test_gram_norms_stage_widths_on_card(sm90, na, nb, sym, dtype, per_lane):
+    """B4 in the stage's norms mode, and in its symmetric P mode (one
+    tensor as A and B: na = nb off P's diagonal), at every width of
+    STAGE_DS."""
+    for d in STAGE_DS:
+        d = _stage_d(d, "fused_gram_norms", dtype, dtype, na, nb, per_lane,
+                     sym=sym)
+        gen = torch.Generator(device="cuda").manual_seed(na * 10 + nb)
+        A = _rows(gen, na, d, dtype=dtype)
+        B = A if sym else _rows(gen, nb, d, dtype=dtype)
+        lam = _stage_lam(gen, per_lane, d)
+        for g, w in zip(ops.fused_gram_norms(A, B, lam),
+                        ref.fused_gram_norms_ref(A, B, lam)):
+            assert g.shape == w.shape
+            assert _rel(g.cpu().numpy(), w.cpu().numpy()) <= F32_TOL, d
+
+
 @pytest.mark.gpu
 @LANES
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -322,6 +413,7 @@ def test_stage_kernels_bitwise_repeatable_on_card(sm90, dtype, per_lane):
     d = 1_000_003
     gen = torch.Generator(device="cuda").manual_seed(3)
     A, B = _rnd(gen, 64, d, dtype=dtype), _rnd(gen, 16, d, dtype=dtype)
+    x = _rnd(gen, 1, d, dtype=dtype)
     K1e, K2e = _rnd(gen, 16, 16), _rnd(gen, 16, 16)
     V = _rnd(gen, 4, 16, d)
     lam = _stage_lam(gen, per_lane, d)
@@ -330,9 +422,17 @@ def test_stage_kernels_bitwise_repeatable_on_card(sm90, dtype, per_lane):
              lambda: ops.fused_gram_mvm(K1e, K2e, B, V[0], lam,
                                         stationary=True),
              lambda: ops.fused_gram_mvm(K1e, K2e, B, V, lam,
-                                        stationary=False))
+                                        stationary=False),
+             lambda: ops.fused_factor_build(A, B, V[0], lam, v_scale=lam),
+             lambda: ops.fused_factor_build(B, x, None, lam),
+             lambda: ops.fused_factor_build(B, B, V[1], lam),
+             lambda: ops.fused_gram_norms(A, B, lam),
+             lambda: ops.fused_gram_norms(B, B, lam))
     for call in calls:
-        assert torch.equal(call(), call())
+        one, two = call(), call()
+        for a, b in zip(one if isinstance(one, tuple) else (one,),
+                        two if isinstance(two, tuple) else (two,)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -352,3 +452,31 @@ def test_skinny_gram_against_float64_on_card(sm90, d, dtype):
         exact = (A.double() * lam.double()) @ B.double().T
         got = ops.skinny_gram(A, B, lam)
         assert _rel(got.cpu().numpy(), exact.cpu().numpy()) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1_000_003, 4_194_304])
+def test_fused_factor_build_against_float64_on_card(sm90, d, dtype):
+    """B1's sums against float64 sums of the same stored values (scalar
+    lam = v_scale = 1/D, V in f32), at the query shape, the bundle's A = B
+    and the border's V = B: every output within 2e-6 of its max-abs. The
+    full mode sums about 2,000 products a lane in sequence (16 lanes x 2
+    columns a stripe), twice skinny_gram's run: a numpy model of that order
+    puts a zero-mean query output's f32 error near 1e-6 of the max-abs at
+    D = 2^22."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    Xq = _rnd(gen, 64, d, dtype=dtype)
+    X = _rnd(gen, 16, d, dtype=dtype)
+    x = _rnd(gen, 1, d, dtype=dtype)
+    Z = _rnd(gen, 16, d)
+    lam = torch.tensor(1.0 / d, device="cuda")
+    for A, B, V in ((Xq, X, Z), (X, X, Z), (X, x, None)):
+        got = ops.fused_factor_build(A, B, V, lam, v_scale=lam)
+        Vd = (B if V is None else V).double()
+        Ad, Bd, ld = A.double(), B.double(), lam.double()
+        exact = ((Ad * ld) @ Bd.T, ((Ad * ld) * Ad).sum(1),
+                 ((Bd * ld) * Bd).sum(1), (Vd * ld) @ Ad.T,
+                 ((Bd * ld) * Vd).sum(1))
+        for g, w in zip(got, exact):
+            assert _rel(g.cpu().numpy(), w.cpu().numpy()) <= 2e-6

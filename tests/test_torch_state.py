@@ -8,6 +8,8 @@ method at float64 with CG at tol 1e-10; the two solves differ only in
 summation order (XLA vs PyTorch), which the well-conditioned random walk
 below keeps far under the 1e-8 relative bound.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -66,15 +68,29 @@ def _assert_same(js, ts, fields=("Z", "L", "K1e", "K2e", "X", "G")):
         assert err <= TOL, (k, err)
 
 
+@functools.lru_cache(maxsize=None)
+def _served(kname):
+    """Both states after the same 3-step walk: the state that the serve
+    tests query and never change. The cases of one kernel that land on
+    one test worker share it, since each JAX extend compiles anew."""
+    obs, x_last = _walk(4, 3)
+    js, ts = _states(kname)
+    for x, g in obs:
+        js.extend(jnp.asarray(x), jnp.asarray(g))
+        ts.extend(torch.tensor(x), torch.tensor(g))
+    return x_last, js, ts
+
+
 @pytest.mark.parametrize("kname", KERNELS)
 def test_extend_evict_serve_trajectory_matches_jax(kname):
-    obs, x_last = _walk(0, 7)
+    """Five steps through a window of 4: the fifth evicts."""
+    obs, x_last = _walk(0, 5)
     js, ts = _states(kname)
     for x, g in obs:
         js.extend(jnp.asarray(x), jnp.asarray(g))
         ts.extend(torch.tensor(x), torch.tensor(g))
         _assert_same(js, ts)
-    assert ts.stats["n_solve"] == 7 and ts.stats["n_refactor"] == 0
+    assert ts.stats["n_solve"] == 5 and ts.stats["n_refactor"] == 0
     Xq = x_last[None] + 0.1 * np.random.RandomState(1).randn(10, D)
     pj = jax_serve_step(js, config=JaxServeConfig(microbatch=4)).query(
         jnp.asarray(Xq))
@@ -83,11 +99,11 @@ def test_extend_evict_serve_trajectory_matches_jax(kname):
     assert tuple(pt.grad.shape) == (10, D) and tuple(pt.value.shape) == (10,)
     assert _rel(pt.value.numpy(), pj.value) <= TOL
     assert _rel(pt.grad.numpy(), pj.grad) <= TOL
-    assert ts.stats["n_solve"] == 7  # queries never re-solve
+    assert ts.stats["n_solve"] == 5  # queries never re-solve
 
 
 def test_dot_kernel_center_matches_jax():
-    obs, x_last = _walk(10, 5)
+    obs, x_last = _walk(10, 4)
     c = 0.3 * np.ones(D)
     js = JaxState("poly2", d=D, window=WINDOW, lam=1.0 / D, noise=NOISE,
                   tol=1e-10, c=jnp.asarray(c))
@@ -110,11 +126,7 @@ def test_dot_kernel_center_matches_jax():
 def test_serve_microbatch_split_matches_jax(kname, microbatch):
     """The port runs a ragged last microbatch as it is (the JAX step pads
     it): any split of a request gives the JAX answer."""
-    obs, x_last = _walk(4, 5)
-    js, ts = _states(kname)
-    for x, g in obs:
-        js.extend(jnp.asarray(x), jnp.asarray(g))
-        ts.extend(torch.tensor(x), torch.tensor(g))
+    x_last, js, ts = _served(kname)
     Xq = x_last[None] + 0.1 * np.random.RandomState(5).randn(10, D)
     cfg = dict(microbatch=microbatch)
     pj = jax_serve_step(js, config=JaxServeConfig(**cfg)).query(
@@ -156,10 +168,12 @@ def test_bf16_stream_queries_match_jax(kname):
 
 @pytest.mark.parametrize("kname", ["rbf", "expdot"])
 def test_state_carried_across_from_jax_continues_alike(kname):
-    obs, _ = _walk(2, 8)
+    """A JAX state's data after 2 extends, carried into the port, goes on
+    as the JAX state goes on, past the window's first eviction."""
+    obs, _ = _walk(2, 5)
     js = JaxState(kname, d=D, window=WINDOW, lam=1.0 / D, noise=NOISE,
                   tol=1e-10)
-    for x, g in obs[:3]:
+    for x, g in obs[:2]:
         js.extend(jnp.asarray(x), jnp.asarray(g))
     arrays = {k: None if v is None else np.asarray(v)
               for k, v in js.data._asdict().items()}
@@ -167,7 +181,7 @@ def test_state_carried_across_from_jax_continues_alike(kname):
                                   noise=NOISE, tol=1e-10, device="cpu",
                                   dtype=torch.float64)
     _assert_same(js, ts)
-    for x, g in obs[3:]:
+    for x, g in obs[2:]:
         js.extend(jnp.asarray(x), jnp.asarray(g))
         ts.extend(torch.tensor(x), torch.tensor(g))
         _assert_same(js, ts)
@@ -193,7 +207,8 @@ def test_convert_round_trip_is_exact():
 
 
 def test_window_none_grows_like_jax():
-    obs, x_last = _walk(4, 5)
+    """Capacity 2, no window: the third observation doubles it."""
+    obs, x_last = _walk(4, 3)
     js = JaxState("rbf", d=D, capacity=2, lam=1.0 / D, noise=NOISE,
                   tol=1e-10)
     ts = GPGState("rbf", d=D, capacity=2, lam=1.0 / D, noise=NOISE, tol=1e-10,
@@ -203,6 +218,7 @@ def test_window_none_grows_like_jax():
         ts.extend(torch.tensor(x), torch.tensor(g))
         assert ts.data.capacity == js.data.capacity
         _assert_same(js, ts)
+    assert ts.data.capacity == 4
     Xq = x_last[None] + 0.1 * np.random.RandomState(5).randn(3, D)
     pj, pt = js.posterior(jnp.asarray(Xq)), ts.posterior(torch.tensor(Xq))
     assert _rel(pt.grad.numpy(), pj.grad) <= TOL
